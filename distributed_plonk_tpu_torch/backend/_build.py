@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/*.cu` compiles with `nvcc` into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with ctypes; pointers and the stream pass as `c_void_p`. All sources build
+at once, one `nvcc` process each, at first use, into
+`build/dpt_torch_kernels/<hash>/` under the checkout, keyed by a hash of
+every source and the flags — an edit rebuilds, an unchanged tree reuses.
+
+There is no fallback: without `nvcc` or a card, `load()` raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+BUILD_DIR = os.path.join(_ROOT, "build", "dpt_torch_kernels")
+
+# library name -> source file
+SOURCES = {
+    "field": "mont_mul.cu",
+    "ntt": "ntt.cu",
+    "msm": "msm_bucket.cu",
+    "curve": "curve_add.cu",
+}
+HEADERS = ("field.cuh", "curve.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C signatures (every function returns its launch's cudaGetLastError())
+SIGNATURES = {
+    "field": {"dpt_mont_mul": (_I, _V, _V, _V, _L, _V)},
+    "ntt": {"dpt_ntt_stage": (_V, _V, _V, _V, _I, _I, _L, _V),
+            "dpt_ntt_bitrev": (_V, _V, _I, _L, _V)},
+    "msm": {"dpt_bucket_accumulate": (_V, _V, _V, _V, _V, _V, _I, _I, _I,
+                                      _L, _V)},
+    "curve": {"dpt_proj_add": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+                               _V)},
+}
+
+_lock = threading.Lock()
+_libs = None
+build_log = {}  # library name -> nvcc output (ptxas register/spill report)
+
+# Launch counters, one plain integer per kernel: each wrapper adds one where
+# it launches its kernel (the NTT counts every stage and bit-reversal
+# launch; proj_add counts its full and mixed launches alike).
+LAUNCHES = {"mont_mul": 0, "ntt": 0, "bucket_accumulate": 0, "proj_add": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the port's kernels build on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(set(SOURCES.values()) | set(HEADERS)):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(out_dir):
+    """Compile every source in parallel into out_dir; raise on failure."""
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        tmp = os.path.join(out_dir, "lib%s.so.tmp%d" % (name, os.getpid()))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            errors.append("%s (%s):\n%s" % (name, SOURCES[name], out))
+            continue
+        os.replace(tmp, os.path.join(out_dir, "lib%s.so" % name))
+        with open(os.path.join(out_dir, "%s.log" % name), "w") as f:
+            f.write(out)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def load():
+    """name -> ctypes.CDLL for every kernel library, building if needed."""
+    global _libs
+    with _lock:
+        if _libs is not None:
+            return _libs
+        out_dir = os.path.join(BUILD_DIR, source_hash())
+        if not all(os.path.exists(os.path.join(out_dir, "lib%s.so" % n))
+                   for n in SOURCES):
+            _build(out_dir)
+        libs = {}
+        for name in SOURCES:
+            lib = ctypes.CDLL(os.path.join(out_dir, "lib%s.so" % name))
+            for fn, sig in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.restype = ctypes.c_int
+                f.argtypes = list(sig)
+            libs[name] = lib
+            log = os.path.join(out_dir, "%s.log" % name)
+            if name not in build_log and os.path.exists(log):
+                with open(log) as f:
+                    build_log[name] = f.read()
+        _libs = libs
+        return libs
+
+
+def check(rc, what):
+    """Raise on a non-zero cudaGetLastError() code returned by a launch."""
+    if rc != 0:
+        raise RuntimeError("CUDA launch of %s failed: cudaError %d"
+                           % (what, rc))

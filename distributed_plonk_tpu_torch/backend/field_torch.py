@@ -1,0 +1,308 @@
+"""Prime-field arithmetic on word tensors: the port of backend/field_jax.py.
+
+Values are (L, *batch) torch.int32 tensors of 32-bit little-endian words
+(L = 8 for Fr, 12 for Fq) in Montgomery form with R = 2^256 / 2^384 — the
+JAX package's radix, so every canonical result has the same bits as
+field_jax's (`limbs.from_jax_limbs` is the bit-level map between them).
+
+`mont_mul` is kernel 1 (csrc/mont_mul.cu): on a CUDA tensor it launches the
+kernel, on a CPU tensor it runs `mont_mul_ref`, its plain torch version.
+add / sub / neg are plain torch on either device (the JAX package computes
+them in XLA, outside any Pallas kernel); they widen the words to int64,
+since torch cannot add, shift or compare uint32.
+"""
+
+import torch
+
+from ..constants import (R_MOD, Q_MOD, FR_WORDS, FQ_WORDS, FR_MONT_R,
+                         FQ_MONT_R, FR_MONT_R2, FQ_MONT_R2, FR_MONT_INV,
+                         FQ_MONT_INV, FR_MONT_INV32, FQ_MONT_INV32,
+                         WORD_MASK)
+from . import _build
+
+_M16 = 0xFFFF
+
+
+class FieldSpec:
+    """Static per-field constants (host ints and word lists)."""
+
+    def __init__(self, name, index, mod, n_words, mont_r, mont_r2,
+                 mont_inv, n0):
+        self.name = name
+        self.index = index          # field selector of the C interface
+        self.mod = mod
+        self.n_words = n_words
+        self.mont_r = mont_r        # 1 in Montgomery form
+        self.mont_r2 = mont_r2
+        self.n0 = n0                # -p^-1 mod 2^32
+        self.mod_words = [(mod >> (32 * i)) & WORD_MASK
+                          for i in range(n_words)]
+        self.negmod_words = [(((1 << (32 * n_words)) - mod) >> (32 * i))
+                             & WORD_MASK for i in range(n_words)]
+        nl = 2 * n_words
+        # 16-bit limb constants of the plain multiplier
+        self.mod16 = [(mod >> (16 * i)) & _M16 for i in range(nl)]
+        self.ninv16 = [(mont_inv >> (16 * i)) & _M16 for i in range(nl)]
+        self.negmod16 = [(((1 << (16 * nl)) - mod) >> (16 * i)) & _M16
+                         for i in range(nl)]
+
+
+FR = FieldSpec("Fr", 0, R_MOD, FR_WORDS, FR_MONT_R, FR_MONT_R2,
+               FR_MONT_INV, FR_MONT_INV32)
+FQ = FieldSpec("Fq", 1, Q_MOD, FQ_WORDS, FQ_MONT_R, FQ_MONT_R2,
+               FQ_MONT_INV, FQ_MONT_INV32)
+
+
+def device_of(device):
+    """torch.device with its index filled in ("cuda" -> "cuda:0")."""
+    return torch.empty(0, device=device).device
+
+
+def resolve_device(device, who):
+    """An entry point's device argument: None means "cuda" and raises
+    without a card; "cpu" has to be asked for, and runs the plain
+    versions of the kernels."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("%s: CUDA is not available (pass device='cpu' "
+                           "for the plain path)" % who)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError("%s: unsupported device %s" % (who, device))
+    return device_of(device)
+
+
+# --- word tensors <-> int64 -------------------------------------------------
+
+def _wide(a):
+    """int32 words -> int64 in [0, 2^32)."""
+    return a.to(torch.int64) & WORD_MASK
+
+
+def _narrow(w):
+    """int64 in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
+
+
+_COLS = {}
+
+
+def _col(values, ndim, device):
+    """Host list -> (len, 1, ..., 1) int64 constant (memoized: the plain
+    paths ask for the same few field constants on every call)."""
+    key = (tuple(values), ndim, str(device))
+    hit = _COLS.get(key)
+    if hit is None:
+        hit = _COLS[key] = torch.tensor(
+            values, dtype=torch.int64, device=device).reshape(
+                (len(values),) + (1,) * (ndim - 1))
+    return hit
+
+
+def const(spec, value, device, ndim=2):
+    """One field int (already in the wanted form) -> (L, 1, ...) words."""
+    words = [(value >> (32 * i)) & WORD_MASK for i in range(spec.n_words)]
+    return _narrow(_col(words, ndim, device))
+
+
+# --- add / sub (plain torch) -------------------------------------------------
+
+def _sweep32(x):
+    """Carry-propagate non-negative int64 word columns (each < 2^62):
+    returns (words < 2^32, carry out of the top word)."""
+    out = torch.empty_like(x)
+    c = torch.zeros_like(x[0])
+    for i in range(x.shape[0]):
+        v = x[i] + c
+        out[i] = v & WORD_MASK
+        c = v >> 32
+    return out, c
+
+
+def _reduce_once(spec, w, hi):
+    """(hi:w) - p if (hi:w) >= p else w, for (hi:w) < 2p; int64 words.
+    Adding 2^(32L) - p carries out exactly when w >= p."""
+    d, c = _sweep32(w + _col(spec.negmod_words, w.dim(), w.device))
+    return torch.where(((c != 0) | (hi != 0))[None], d, w)
+
+
+def add(spec, a, b):
+    """a + b mod p (inputs < p)."""
+    w, c = _sweep32(_wide(a) + _wide(b))
+    return _narrow(_reduce_once(spec, w, c))
+
+
+def sub(spec, a, b):
+    """a - b mod p (inputs < p): a + (2^(32L) - b) carries out iff a >= b;
+    otherwise the wrapped difference gets p added back."""
+    nb = WORD_MASK - _wide(b)                      # ~b, word by word
+    one = torch.zeros_like(nb)
+    one[0] = 1
+    w, c = _sweep32(_wide(a) + nb + one)           # a - b mod 2^(32L)
+    wp, _ = _sweep32(w + _col(spec.mod_words, w.dim(), w.device))
+    return _narrow(torch.where((c != 0)[None], w, wp))
+
+
+def neg(spec, a):
+    return sub(spec, torch.zeros_like(a), a)
+
+
+def double(spec, a):
+    return add(spec, a, a)
+
+
+# --- kernel 1: Montgomery multiply ------------------------------------------
+
+def _to16(a):
+    """(L, *b) int32 words -> (2L, *b) int64 16-bit limbs."""
+    w = _wide(a)
+    return torch.stack([w & _M16, w >> 16], dim=1).reshape(
+        (2 * a.shape[0],) + tuple(a.shape[1:]))
+
+
+def _from16(limbs):
+    return _narrow(limbs[0::2] | (limbs[1::2] << 16))
+
+
+def _sweep16(cols):
+    """Exact carry normalization of non-negative int64 column sums (each
+    < 2^62), rippled limb by limb: returns (limbs < 2^16, carry out of the
+    top limb)."""
+    out = torch.empty_like(cols)
+    c = torch.zeros_like(cols[0])
+    for i in range(cols.shape[0]):
+        v = cols[i] + c
+        out[i] = v & _M16
+        c = v >> 16
+    return out, c
+
+
+def _mul_cols(a, b, n_out):
+    """Column sums of the product of two 16-bit limb vectors, truncated to
+    n_out columns (each sum < 2L * 2^32, exact in int64), row by row."""
+    la, lb = a.shape[0], b.shape[0]
+    batch = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    out = torch.zeros((n_out,) + batch, dtype=torch.int64, device=a.device)
+    for i in range(min(la, n_out)):
+        w = min(lb, n_out - i)
+        out[i:i + w] += a[i] * b[:w]
+    return out
+
+
+def mont_mul_ref(spec, a, b):
+    """Plain torch Montgomery product a*b*R^-1 mod p (inputs < p, output
+    canonical): SOS over 16-bit limbs held in int64. t = a*b stays as
+    uncarried columns (< 2^37): m = t*(-p^-1) mod R only needs t mod R up
+    to congruence, and t + m*p is normalized once; then one conditional
+    subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    nl = 2 * spec.n_words
+    nd = a.dim()
+    t = _mul_cols(_to16(a), _to16(b), 2 * nl)                    # < 2^37
+    m, _ = _sweep16(_mul_cols(t[:nl], _col(spec.ninv16, nd, a.device),
+                              nl))                               # mod R
+    u, c = _sweep16(_mul_cols(m, _col(spec.mod16, nd, a.device), 2 * nl)
+                    + t)
+    hi = u[nl:]                       # (t + m*p) / R < 2p
+    d, c2 = _sweep16(hi + _col(spec.negmod16, nd, a.device))
+    take = (c2 != 0) | (c != 0)       # carry out <=> hi >= p
+    return _from16(torch.where(take[None], d, hi))
+
+
+def _check_words(spec, t, what):
+    if t.dtype != torch.int32:
+        raise TypeError("%s: expected int32 words, got %s" % (what, t.dtype))
+    if t.dim() < 1 or t.shape[0] != spec.n_words:
+        raise ValueError("%s: expected (%d, ...) words, got %s"
+                         % (what, spec.n_words, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s: expected a contiguous tensor" % what)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def mont_mul_cuda(spec, a, b):
+    """Kernel 1 launch: contiguous (L, *batch) int32 CUDA words of one
+    shape -> a*b*R^-1 mod p."""
+    _check_words(spec, a, "mont_mul a")
+    _check_words(spec, b, "mont_mul b")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("mont_mul: operands must lie on one CUDA device")
+    if a.shape != b.shape:
+        raise ValueError("mont_mul: shapes differ %s %s"
+                         % (tuple(a.shape), tuple(b.shape)))
+    out = torch.empty_like(a)
+    lib = _build.load()["field"]
+    with torch.cuda.device(a.device):
+        rc = lib.dpt_mont_mul(spec.index, out.data_ptr(), a.data_ptr(),
+                              b.data_ptr(), a.numel() // spec.n_words,
+                              _stream(a))
+    _build.check(rc, "mont_mul")
+    _build.LAUNCHES["mont_mul"] += 1
+    return out
+
+
+def mont_mul(spec, a, b):
+    """Montgomery product a*b*R^-1 mod p, inputs/outputs reduced (< p);
+    batch shapes broadcast. CUDA tensors launch kernel 1, CPU tensors run
+    the plain version."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mont_mul_ref(spec, a, b)
+    return mont_mul_cuda(spec, a.contiguous(), b.contiguous())
+
+
+def to_mont(spec, a):
+    return mont_mul(spec, a, const(spec, spec.mont_r2, a.device, a.dim()))
+
+
+def from_mont(spec, a):
+    return mont_mul(spec, a, const(spec, 1, a.device, a.dim()))
+
+
+def one_like(spec, a):
+    """1 (Montgomery form) broadcast to a's shape."""
+    return const(spec, spec.mont_r, a.device, a.dim()).expand(a.shape)
+
+
+def cumprod(spec, v, reverse=False):
+    """Inclusive prefix (or suffix) Montgomery products along axis 1 of an
+    (L, n) tensor: the Hillis-Steele shift-multiply ladder of
+    field_jax.cumprod_mont (log2 n full-width products)."""
+    L, n = v.shape
+    one = const(spec, spec.mont_r, v.device)
+    k = 1
+    while k < n:
+        ones = one.expand(L, k)
+        if reverse:
+            shifted = torch.cat([v[:, k:], ones], dim=1)
+        else:
+            shifted = torch.cat([ones, v[:, :-k]], dim=1)
+        v = mont_mul(spec, v, shifted)
+        k *= 2
+    return v
+
+
+def cumsum(spec, v, reverse=False):
+    """Inclusive prefix (or suffix) modular sums along axis 1 of (L, n)."""
+    L, n = v.shape
+    k = 1
+    while k < n:
+        zeros = torch.zeros((L, k), dtype=v.dtype, device=v.device)
+        if reverse:
+            shifted = torch.cat([v[:, k:], zeros], dim=1)
+        else:
+            shifted = torch.cat([zeros, v[:, :-k]], dim=1)
+        v = add(spec, v, shifted)
+        k *= 2
+    return v
+
+
+def is_zero(a):
+    return (a == 0).all(dim=0)
+
+
+def select(cond, a, b):
+    """cond: (*batch,) bool; a, b: (L, *batch) -> where(cond, a, b)."""
+    return torch.where(cond[None], a, b)

@@ -1,0 +1,222 @@
+"""The prover's per-round vector math on Fr word tensors: the port of
+backend/prover_jax.py.
+
+Plain torch on top of the field module (every product is a
+`field_torch.mont_mul`, i.e. kernel 1 on the card): the JAX package
+computes all of this in XLA, outside any Pallas kernel. Handles are
+(8, n) Montgomery words; scalars broadcast as (8, 1). Sequential
+recurrences keep prover_jax's log-depth shapes (Hillis-Steele product and
+sum ladders), except that the one field inversion of a batch inverse runs
+on the host (a single element crosses, as in curve_jax.batch_to_affine).
+"""
+
+import torch
+
+from ..constants import R_MOD, FR_MONT_R, FR_WORDS
+from . import field_torch as F
+from .field_torch import FR
+from .limbs import lift_scalar, to_numpy, words_to_ints
+
+_R_INV = pow(FR_MONT_R, -1, R_MOD)
+
+
+def _mm(a, b):
+    return F.mont_mul(FR, a, b)
+
+
+def _add(a, b):
+    return F.add(FR, a, b)
+
+
+def _sub(a, b):
+    return F.sub(FR, a, b)
+
+
+def _one_like(v):
+    return F.one_like(FR, v)
+
+
+def cumprod(v, reverse=False):
+    """Inclusive prefix (or suffix) products along axis 1 of (8, n)."""
+    return F.cumprod(FR, v, reverse=reverse)
+
+
+def fr_pow(base, exp):
+    """base^exp for a public int exponent, square-and-multiply MSB first."""
+    acc = _one_like(base)
+    for bit in bin(exp)[2:]:
+        acc = _mm(acc, acc)
+        if bit == "1":
+            acc = _mm(acc, base)
+    return acc
+
+
+def inverse_scalar(x):
+    """(8, 1) nonzero Montgomery element -> its inverse (host pow)."""
+    v = words_to_ints(to_numpy(x.reshape(FR_WORDS, 1)))[0] * _R_INV % R_MOD
+    return lift_scalar(pow(v, R_MOD - 2, R_MOD), x.device)
+
+
+def batch_inverse(v):
+    """Elementwise inverse of (8, n) nonzero Montgomery values: Montgomery's
+    trick, v_j^-1 = P_{j-1} * S_{j+1} * P_n^-1 with prefix/suffix product
+    ladders and one field inversion."""
+    pre = cumprod(v)
+    suf = cumprod(v, reverse=True)
+    total_inv = inverse_scalar(pre[:, -1:])
+    one = _one_like(v[:, :1])
+    p_shift = torch.cat([one, pre[:, :-1]], dim=1)
+    s_shift = torch.cat([suf[:, 1:], one], dim=1)
+    return _mm(_mm(p_shift, s_shift), total_inv)
+
+
+# --- round 2: permutation running product -----------------------------------
+
+def perm_product(wires, id_tab, sig_tab, beta, gamma):
+    """z(w^j) running-product evaluations. wires/id_tab/sig_tab: (8, w, n)
+    (witness values, identity-permutation values k_i*w^j, sigma-mapped
+    identity values); beta/gamma: (8, 1, 1). Returns (8, n):
+    [1, prod_{t<j} num_t/den_t ...]."""
+    n = wires.shape[2]
+    t = _add(wires, gamma)
+    num_f = _add(t, _mm(beta, id_tab))
+    den_f = _add(t, _mm(beta, sig_tab))
+
+    def wire_reduce(f):
+        acc = f[:, 0]
+        for i in range(1, f.shape[1]):
+            acc = _mm(acc, f[:, i])
+        return acc
+
+    ratio = _mm(wire_reduce(num_f), batch_inverse(wire_reduce(den_f)))
+    run = cumprod(ratio[:, :n - 1])
+    return torch.cat([_one_like(ratio[:, :1]), run], dim=1)
+
+
+# --- round 3: quotient evaluations ------------------------------------------
+
+def domain_tables(m, n, gen, group_gen, device):
+    """Witness-independent quotient-domain tables (8, m): coset points
+    ep_i = g*w^i, 1/Z_H(ep) tiled, and 1/(ep - 1)."""
+    w_rep = lift_scalar(group_gen, device).expand(FR_WORDS, m)
+    pw = cumprod(w_rep.contiguous())                 # w^(i+1)
+    g_c = lift_scalar(gen, device)
+    ep = torch.cat([g_c, _mm(pw[:, :m - 1], g_c)], dim=1)
+    ratio = m // n
+    zh = _sub(fr_pow(ep[:, :ratio], n), _one_like(ep[:, :ratio]))
+    zh_inv = batch_inverse(zh).repeat(1, m // ratio)
+    shifted_inv = batch_inverse(_sub(ep, _one_like(ep)))
+    return {"ep": ep, "zh_inv": zh_inv, "shifted_inv": shifted_inv}
+
+
+def _pow5(x):
+    x2 = _mm(x, x)
+    return _mm(_mm(x2, x2), x)
+
+
+def quotient_evals(selectors, sigmas, wires, z, pi, tabs, k, beta, gamma,
+                   alpha, alpha_sq_div_n, ratio):
+    """Coset evaluations of the quotient polynomial, elementwise on m lanes
+    (prover_jax.quotient_evals_core). selectors (8, 13, m); sigmas/wires
+    (8, 5, m); z/pi (8, m); k (8, 5, 1); scalars (8, 1). Selector order as
+    circuit.py: Q_LC x4, Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC."""
+    z_next = torch.roll(z, -ratio, dims=1)
+    a, b, c, d, e = (wires[:, i] for i in range(5))
+    ab = _mm(a, b)
+    cd = _mm(c, d)
+    gate = _add(selectors[:, 11], pi)                 # q_c + pi
+    for i, operand in ((0, a), (1, b), (2, c), (3, d)):
+        gate = _add(gate, _mm(selectors[:, i], operand))
+    gate = _add(gate, _mm(selectors[:, 4], ab))
+    gate = _add(gate, _mm(selectors[:, 5], cd))
+    for i, operand in ((6, a), (7, b), (8, c), (9, d)):
+        gate = _add(gate, _mm(selectors[:, i], _pow5(operand)))
+    gate = _add(gate, _mm(selectors[:, 12], _mm(_mm(ab, cd), e)))
+    gate = _sub(gate, _mm(selectors[:, 10], e))
+
+    ep = tabs["ep"]
+    acc1 = z
+    acc2 = z_next
+    for j in range(5):
+        t = _add(wires[:, j], gamma)
+        acc1 = _mm(acc1, _add(t, _mm(_mm(k[:, j], ep), beta)))
+        acc2 = _mm(acc2, _add(t, _mm(sigmas[:, j], beta)))
+    perm = _mm(alpha, _sub(acc1, acc2))
+    l1 = _mm(_mm(alpha_sq_div_n, _sub(z, _one_like(z))),
+             tabs["shifted_inv"])
+    return _add(_mm(tabs["zh_inv"], _add(gate, perm)), l1)
+
+
+# --- polynomial utilities ---------------------------------------------------
+
+def _sum_axis1(v):
+    """Modular sum over axis 1 of (8, k, ...) as a pairwise tree."""
+    while v.shape[1] > 1:
+        k = v.shape[1]
+        half = (k + 1) // 2
+        summed = _add(v[:, :k - half], v[:, half:])
+        v = torch.cat([summed, v[:, k - half:half]], dim=1)
+    return v[:, 0]
+
+
+def poly_eval(polys, zs, chunk=256):
+    """p_b(z_b) for (8, B, L) Montgomery coefficients at (8, B, 1) points ->
+    (8, B) Montgomery. Block Horner: `chunk` sequential multiply-adds over
+    ceil(L / chunk) lanes, then the lanes combine with powers of z^chunk."""
+    L8, B, L = polys.shape
+    chunk = max(1, min(chunk, L))
+    lanes = -(-L // chunk)
+    v = torch.nn.functional.pad(polys, (0, lanes * chunk - L))
+    v = v.reshape(L8, B, lanes, chunk)
+    acc = torch.zeros((L8, B, lanes), dtype=polys.dtype, device=polys.device)
+    for j in range(chunk - 1, -1, -1):
+        acc = _add(_mm(acc, zs), v[..., j])
+    if lanes > 1:
+        zk = fr_pow(zs, chunk)                       # (8, B, 1)
+        pw = [_one_like(zk)]                         # zk^0 .. zk^(lanes-1)
+        for _ in range(lanes - 1):
+            pw.append(_mm(pw[-1], zk))
+        acc = _mm(acc, torch.cat(pw, dim=2))
+    return _sum_axis1(acc.transpose(1, 2))
+
+
+def poly_eval_many(polys, zs):
+    """(8, B, L) polys at (8, B, 1) points -> (8, B) CANONICAL words."""
+    return F.from_mont(FR, poly_eval(polys, zs))
+
+
+def synthetic_divide(poly, zc):
+    """Quotient of p(X) / (X - z), remainder dropped, for (8, L) Montgomery
+    coefficients and an (8, 1) point: q_j = S_{j+1} z^-(j+1), S the suffix
+    sums of c_t z^t (two ladders instead of an O(L) recurrence)."""
+    L = poly.shape[1]
+    if L <= 1:
+        return poly[:, :0]
+    zinv = inverse_scalar(zc)
+    z_rep = zc.expand(FR_WORDS, L).contiguous()
+    pw = torch.cat([_one_like(poly[:, :1]), cumprod(z_rep)[:, :L - 1]],
+                   dim=1)                             # z^t
+    s = F.cumsum(FR, _mm(poly, pw), reverse=True)
+    ipw = cumprod(zinv.expand(FR_WORDS, L - 1).contiguous())  # z^-(j+1)
+    return _mm(s[:, 1:], ipw)
+
+
+def lin_comb(stacked, coeffs):
+    """sum_i coeff_i * p_i for (8, k, L) polys and (8, k, 1) coefficients."""
+    return _sum_axis1(_mm(stacked, coeffs))
+
+
+def add_vanishing_blind(coeffs, b, n):
+    """coeffs + blind(X) * (X^n - 1) for a small (8, d1) Montgomery blind:
+    out has length n + d1; out[n+i] += b_i, out[i] -= b_i."""
+    d1 = b.shape[1]
+    ext = torch.nn.functional.pad(coeffs, (0, n + d1 - coeffs.shape[1]))
+    head = _sub(ext[:, :d1], b)
+    tail = _add(ext[:, n:n + d1], b)
+    return torch.cat([head, ext[:, d1:n], tail], dim=1)
+
+
+def tail_is_zero(poly, degree):
+    """True iff every coefficient above `degree` is zero."""
+    return bool((poly[:, degree + 1:] == 0).all())
+
