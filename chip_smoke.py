@@ -7,17 +7,23 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 1. Set-up: the card's name and power limit (nvidia-smi), the kernels'
    build from csrc/ (nvcc, all sources in parallel), and the host SRS of
    the reference v1 workload (tau = 0xDEADBEEF).
-2. Kernel parity: each of the four kernels against its plain torch
-   version on the card, on seeded inputs at the main path's shapes, with
-   tolerance 0 (every value is an integer in canonical form), each timed
-   as calls from Python ("launch_ms", host path included) beside its
-   plain version and its bound.
+2. Kernel parity: each kernel entry against its plain torch version on
+   the card, on seeded inputs at the main path's shapes, with tolerance 0
+   (every value is an integer in canonical form, every addition in a
+   fixed order), each timed as calls from Python ("launch_ms", host path
+   included) beside its plain version and its bound. The MSM entries
+   (msm_digits, bucket_sums, msm_tail) run one round-1 commit batch, 5
+   handles of width n + 2 over the commit key's window-shifted copy
+   (304,288 points), whose build time is printed with the sort's.
 3. Full-width prove: the height-32 Rescue Merkle membership circuit
    (n = 2^13, quotient domain 2^16) preprocessed and proven on
    TorchBackend() cold, then proven again warm; both proofs must equal
    tests/fixtures/proof_merkle_h32_p1.hex byte for byte and verify. The
-   kernels' launch counters are zeroed just before the warm prove and read
-   just after it: every kernel must have launched.
+   launch counters are zeroed just before preprocess and read just after
+   it (the elementwise add builds the shifted key there), then zeroed
+   before the warm prove and read after it: every other kernel must have
+   launched there, the MSM entries once per commit batch, and the
+   elementwise add not at all.
 4. Device time: torch.profiler's CUDA kernel times for one launch of each
    kernel at its parity shape, and for one more warm prove (device busy
    time by kernel and the idle share; "not measured" if the profiler
@@ -259,13 +265,11 @@ def main():
                                        for _ in range(count - 3)]
         return to_tensor(ints_to_words(vals, spec.n_words), dev)
 
-    def plain_ms(fn, warm=True):
+    def plain_ms(fn):
         """(output, milliseconds) of one call of a plain version, timed
         with CUDA events, after an untimed call (the first use of each
-        torch kernel loads it) unless warm is False (the plain bucket walk
-        takes seconds)."""
-        if warm:
-            fn()
+        torch kernel loads it)."""
+        fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -324,56 +328,123 @@ def main():
            "distributed_plonk_tpu/backend/ntt_pallas.py:341", err, py_ms, pms,
            nbytes, muls * FR_MUL_IMADS, "coset fwd (8, 8, 65536)")
 
-    # K3: the commit key's c = 7 lane layout, one round-1 batch of 5
-    # handles of width n + 2 (37 windows x 5 = 185 lanes, all 8224 points)
+    # K3 and the K4 tail: the commit key (n + 3 powers padded to 8,224
+    # points) shifted into its 37 windows (304,288 points), one round-1
+    # batch of 5 handles of width n + 2
     ck = kzg.pad_commit_key(srs.powers_of_g1, n + 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     ctx = M.MsmContext(ck, dev)
-    hs = [lift([rng.randrange(R_MOD) for _ in range(n + 2)], dev)
-          for _ in range(5)]
-    words = M._canon_words(torch.stack(hs, dim=1), ctx.padded_n)
-    ops = ctx._ops(words)
-    ax, ay, _ = ctx.point
-    got = M.bucket_accumulate_cuda(ax, ay, ops, ctx.group, ctx.n_buckets)
-    want, pms = plain_ms(lambda: M.bucket_accumulate_ref(
-        ax, ay, ops, ctx.group, ctx.n_buckets), warm=False)
-    err = max_abs_err(got, want)
-    runs["bucket_accumulate"] = (lambda: M.bucket_accumulate_cuda(
-        ax, ay, ops, ctx.group, ctx.n_buckets), 5)
-    py_ms = launch_ms(runs["bucket_accumulate"][0], 5)
-    adds = int((((ops >> M.SKIP_BIT) & 1) == 0).sum().item())
-    lanes_total = ops.shape[0]
-    nbytes = (2 * 48 * ctx.padded_n + 4 * ops.numel()
-              + 3 * 48 * ctx.group * lanes_total * ctx.n_buckets)
-    record("bucket_accumulate", "distributed_plonk_tpu_torch/csrc/msm_bucket.cu",
-           "distributed_plonk_tpu/backend/msm_pallas.py:201", err, py_ms, pms,
-           nbytes, adds * 11 * FQ_MUL_IMADS,
-           "G=%d x %d lanes x %d pts" % (ctx.group, lanes_total,
-                                         ctx.padded_n))
-    print("bucket_accumulate: %d of %d (point, lane) pairs added, "
-          "%d buckets per lane" % (adds, ops.numel(), ctx.n_buckets))
+    torch.cuda.synchronize()
+    key_s = time.perf_counter() - t
+    P = ctx.key.shape[0]
+    print("shifted key: %d points (%d windows x %d bases, %.1f MB "
+          "point-major), built in %.3f s (host upload, %d doublings and one "
+          "batch inversion)" % (P, ctx.windows, ctx.n, P * 96 / 1e6, key_s,
+                                ctx.c * (ctx.windows - 1)), flush=True)
+    B, nb = 5, ctx.n_buckets
+    hv = ctx.stack([lift([rng.randrange(R_MOD) for _ in range(n + 2)], dev)
+                    for _ in range(B)])
+    inf = ctx.inf
+    elems = B * P                       # (handle, shifted point) pairs
 
-    # K4: the first fold level of those planes (the widest tail launch),
-    # the finish running-sum width (2 x 5 x 37 lanes), and mixed adds
-    h = ctx.group // 2
-    p = tuple(c[:, :h].contiguous() for c in got)
-    q = tuple(c[:, h:].contiguous() for c in got)
+    def digits():
+        return M.msm_digits_cuda(hv, inf, ctx.c, ctx.signed, True)
+
+    got = digits()
+    want, pms = plain_ms(lambda: M.msm_digits_ref(hv, inf, ctx.c,
+                                                  ctx.signed, True))
+    err = max_abs_err(got, want)
+    runs["msm_digits"] = (digits, 20)
+    record("msm_digits", "distributed_plonk_tpu_torch/csrc/msm_bucket.cu",
+           "distributed_plonk_tpu/backend/msm_pallas.py:201", err,
+           launch_ms(digits, 20), pms, 32 * B * ctx.n + ctx.n + 8 * elems,
+           B * ctx.n * FR_MUL_IMADS, "(8, %d, %d) -> 2 x (%d, %d, %d)"
+           % (B, ctx.n, B, ctx.windows, ctx.n))
+    ops, keys = got
+
+    # the stable sort and boundaries: index bookkeeping in torch, timed
+    # beside the kernels (graph time in phase 4)
+    def sort_plan():
+        return M._plan(keys, B, nb)
+
+    runs["sort"] = (sort_plan, 20)
+    print("sort %d keys (torch.sort stable, searchsorted, cumsum): launched "
+          "from Python %.4f ms" % (elems, launch_ms(sort_plan, 20)),
+          flush=True)
+    _, count_start, chunk_start = sort_plan()
+    adds = int(count_start[-1].item())
+    chunks = int(chunk_start[-1].item())
+    full = int(((count_start[1:] - count_start[:-1]) > 0).sum().item())
+
+    def sums():
+        return M.bucket_sums_cuda(ctx.key, ops, keys, B, nb)
+
+    got = sums()
+    want, pms = plain_ms(lambda: M.bucket_sums_ref(ctx.key, ops, keys, B,
+                                                   nb))
+    err = max_abs_err(got, want)
+    runs["bucket_sums"] = (sums, 5)
+    record("bucket_sums", "distributed_plonk_tpu_torch/csrc/msm_bucket.cu",
+           "distributed_plonk_tpu/backend/msm_pallas.py:201", err,
+           launch_ms(sums, 5), pms, 96 * P + 8 * elems + 3 * 48 * B * nb,
+           (11 * adds + 12 * (chunks - full)) * FQ_MUL_IMADS,
+           "%d lanes x %d shifted pts" % (B, P))
+    print("bucket_sums: %d of %d (handle, point) pairs added in %d chunks "
+          "of <= %d; %d tree adds over %d non-empty of %d buckets"
+          % (adds, elems, chunks, M.CHUNK, chunks - full, full, B * nb))
+    bsums = got
+
+    def tail():
+        return M.msm_tail_cuda(*bsums, signed=ctx.signed)
+
+    got = tail()
+    want, pms = plain_ms(lambda: M.msm_tail_ref(*bsums, signed=ctx.signed))
+    err = max_abs_err(got, want)
+    runs["msm_tail"] = (tail, 20)
+    S, L = M.tail_shape(nb)
+    tail_adds = B * (2 * S * (L - 1) + 2 * (S - 2) + (L.bit_length() - 1)
+                     + (S - 1) + 1)
+    record("msm_tail", "distributed_plonk_tpu_torch/csrc/curve_add.cu",
+           "distributed_plonk_tpu/backend/curve_pallas.py:289", err,
+           launch_ms(tail, 20), pms, 3 * 48 * B * (nb + 1),
+           tail_adds * 12 * FQ_MUL_IMADS,
+           "(12, %d, %d) -> (12, %d)" % (B, nb, B))
+
+    # K4 elementwise: P + P on the key's bases (the key build's launch,
+    # 8,224 lanes), and full and mixed adds at a wide batch
+    # (189,440 lanes) and at 370 lanes
+    kx, ky = ctx.key[:, :12].t(), ctx.key[:, 12:].t()
+
+    def proj(a, b):
+        pt = CT.from_affine(kx[:, a:b].contiguous(), ky[:, a:b].contiguous(),
+                            torch.zeros(b - a, dtype=torch.bool, device=dev))
+        return tuple(c.contiguous() for c in pt)
+
+    base = proj(0, ctx.n)
+    out = CT._add_cuda(base, base)
+    want, pms = plain_ms(lambda: CT.proj_add_ref(base, base))
+    err = max_abs_err(out, want)
+    runs["proj_add"] = (lambda: CT._add_cuda(base, base), 50)
+    record("proj_add", "distributed_plonk_tpu_torch/csrc/curve_add.cu",
+           "distributed_plonk_tpu/backend/curve_pallas.py:289", err,
+           launch_ms(runs["proj_add"][0], 50), pms, 9 * 48 * ctx.n,
+           ctx.n * 12 * FQ_MUL_IMADS, "full P + P (12, %d)" % ctx.n)
+    wide = 189440
+    p = proj(0, wide)
+    q = CT._add_cuda(p, proj(P - wide, P))          # general Z
     out = CT._add_cuda(p, q)
     want, pms = plain_ms(lambda: CT.proj_add_ref(p, q))
-    err = max_abs_err(out, want)
-    runs["proj_add"] = (lambda: CT._add_cuda(p, q), 10)
-    py_ms = launch_ms(runs["proj_add"][0], 10)
-    lanes = p[0].numel() // 12
-    record("proj_add", "distributed_plonk_tpu_torch/csrc/curve_add.cu",
-           "distributed_plonk_tpu/backend/curve_pallas.py:289", err, py_ms, pms,
-           9 * 48 * lanes, lanes * 12 * FQ_MUL_IMADS,
-           "full, fold (12, %d)" % lanes)
-
-    def cols(pt, a, b):
-        return tuple(c.reshape(12, -1)[:, a:b].contiguous() for c in pt)
-
-    p2, q2 = cols(p, 0, 370), cols(q, 370, 740)
+    assert max_abs_err(out, want) == 0
+    runs["proj_add fold width"] = (lambda: CT._add_cuda(p, q), 10)
+    print("parity proj_add full (12, %d) exact  launched from Python %.4f "
+          "ms  plain %.3f ms  bound %.4f ms (operations)"
+          % (wide, launch_ms(runs["proj_add fold width"][0], 10), pms,
+             bound_ms(9 * 48 * wide, wide * 12 * FQ_MUL_IMADS)))
+    p2 = tuple(c[:, :370].contiguous() for c in p)
+    q2 = tuple(c[:, 370:740].contiguous() for c in q)
     assert max_abs_err(CT._add_cuda(p2, q2), CT.proj_add_ref(p2, q2)) == 0
-    affine = (ax[:, :370].contiguous(), ay[:, :370].contiguous())
+    affine = (kx[:, 1000:1370].contiguous(), ky[:, 1000:1370].contiguous())
     assert max_abs_err(CT._add_cuda(p2, affine),
                        CT.proj_add_mixed_ref(p2, affine)) == 0
     print("parity proj_add full (12, 370) and mixed (12, 370): exact")
@@ -384,10 +455,15 @@ def main():
     with open(FIXTURE) as f:
         golden = bytes.fromhex(f.read().strip())
     be = TorchBackend()
+    _build.reset_launches()
     t = time.perf_counter()
     pk, vk = kzg.preprocess(srs, ckt, be)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t
+    pre_launches = dict(_build.LAUNCHES)
+    # preprocess builds the shifted key: the elementwise add's main path
+    assert pre_launches["proj_add"] > 0, \
+        "proj_add never launched in preprocess"
     tr_cold = Tracer()
     t = time.perf_counter()
     proof = prove(random.Random(1), ckt, pk, be, tracer=tr_cold)
@@ -407,9 +483,20 @@ def main():
     t = time.perf_counter()
     assert verify(vk, ckt.public_input(), proof, rng=random.Random(2))
     verify_s = time.perf_counter() - t
-    for name, count in launches.items():
-        assert count > 0, "kernel %s never launched in the warm prove" % name
-        kernels[name]["launches"] = count
+    for name in ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail"):
+        assert launches[name] > 0, \
+            "kernel %s never launched in the warm prove" % name
+        kernels[name]["launches"] = launches[name]
+        kernels[name]["launches_in"] = "warm prove"
+    # one digit decode, accumulation and tail per commit batch (wires,
+    # permutation, quotient splits, openings), and no elementwise add
+    batches = sum(1 for k in tr_warm.totals(1) if k.startswith("commit"))
+    assert batches == 4, tr_warm.totals(1)
+    for name in ("msm_digits", "bucket_sums", "msm_tail"):
+        assert launches[name] == batches, (name, launches[name], batches)
+    assert launches["proj_add"] == 0, launches
+    kernels["proj_add"]["launches"] = pre_launches["proj_add"]
+    kernels["proj_add"]["launches_in"] = "preprocess"
     print("proof bytes == tests/fixtures/proof_merkle_h32_p1.hex (%d bytes); "
           "verify ok in %.3f s" % (len(blob), verify_s))
     print("preprocess %.3f s; cold prove %.3f s; warm prove %.3f s"
@@ -420,6 +507,7 @@ def main():
         {k: round(v, 4) for k, v in tr_warm.totals(0).items()}))
     print("spans warm: " + json.dumps(
         {k: round(v, 4) for k, v in tr_warm.totals(1).items()}))
+    print("launches in preprocess: " + json.dumps(pre_launches))
     print("launches in the warm prove: " + json.dumps(launches))
     print("peak device memory %.1f MiB"
           % (torch.cuda.max_memory_allocated() / 2**20))
@@ -436,10 +524,12 @@ def main():
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels
     print(json.dumps({"kernels": [kernels[k] for k in (
-        "mont_mul", "ntt", "bucket_accumulate", "proj_add")]}))
+        "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
+        "proj_add")]}))
+    # count: the cards this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

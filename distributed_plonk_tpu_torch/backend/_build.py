@@ -42,9 +42,13 @@ SIGNATURES = {
     "field": {"dpt_mont_mul": (_I, _V, _V, _V, _L, _V)},
     "ntt": {"dpt_ntt_stage": (_V, _V, _V, _V, _I, _I, _L, _V),
             "dpt_ntt_bitrev": (_V, _V, _I, _L, _V)},
-    "msm": {"dpt_bucket_accumulate": (_V, _V, _V, _V, _V, _V, _I, _I, _I,
-                                      _L, _V)},
+    "msm": {"dpt_msm_digits": (_V, _V, _V, _V, _I, _L, _I, _I, _I, _I, _I,
+                               _V),
+            "dpt_bucket_sums": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
+                                _L, _I, _V)},
     "curve": {"dpt_proj_add": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+                               _V),
+              "dpt_msm_tail": (_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
                                _V)},
 }
 
@@ -52,10 +56,12 @@ _lock = threading.Lock()
 _libs = None
 build_log = {}  # library name -> nvcc output (ptxas register/spill report)
 
-# Launch counters, one plain integer per kernel: each wrapper adds one where
-# it launches its kernel (the NTT counts every stage and bit-reversal
-# launch; proj_add counts its full and mixed launches alike).
-LAUNCHES = {"mont_mul": 0, "ntt": 0, "bucket_accumulate": 0, "proj_add": 0}
+# Launch counters, one plain integer per kernel entry: each wrapper adds one
+# where it launches its kernel (the NTT counts every stage and bit-reversal
+# launch; proj_add counts its full and mixed launches alike; bucket_sums
+# counts one per call, which launches its chunk and tree kernels).
+LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
+            "msm_tail": 0, "proj_add": 0}
 
 
 def reset_launches():

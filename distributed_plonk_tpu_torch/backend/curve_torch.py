@@ -3,7 +3,7 @@
 Points are tuples of (12, *batch) int32 Montgomery Fq word tensors.
 Homogeneous projective (X : Y : Z) with identity (0 : 1 : 0) for the
 complete RCB15 adds of the MSM; Jacobian (x = X/Z^2, y = Y/Z^3) only where
-a device-built key arrives (`batch_to_affine`).
+a device-built key arrives (`batch_to_affine` normalizes either).
 
 `proj_add` / `proj_add_mixed` are kernel 4 (csrc/curve_add.cu): on CUDA
 tensors they launch the kernel, on CPU tensors they run
@@ -147,10 +147,12 @@ def proj_add_mixed(p, q_affine, q_inf=None):
     return tuple(F.select(q_inf, a, b) for a, b in zip(coords[:3], res))
 
 
-def batch_to_affine(p):
-    """Jacobian (12, n) Montgomery -> (x, y, inf_mask) affine, on device:
-    Montgomery batch inversion of the Z column (prefix/suffix product
-    ladders and ONE host inverse), as curve_jax.batch_to_affine."""
+def batch_to_affine(p, jacobian=True):
+    """(12, n) Montgomery points -> (x, y, inf_mask) affine, on device:
+    Jacobian (x = X/Z^2, y = Y/Z^3) by default, homogeneous projective
+    (x = X/Z, y = Y/Z) with jacobian=False. One Montgomery batch inversion
+    of the Z column (prefix/suffix product ladders and ONE host inverse),
+    as curve_jax.batch_to_affine."""
     px, py, pz = p
     inf = F.is_zero(pz)
     z = F.select(inf, F.one_like(FQ, pz), pz)
@@ -164,11 +166,12 @@ def batch_to_affine(p):
     one = F.one_like(FQ, pz[:, :1])
     pre_im1 = torch.cat([one, pre[:, :-1]], dim=1)
     suf_ip1 = torch.cat([suf[:, 1:], one], dim=1)
-    zinv = F.mont_mul(FQ, F.mont_mul(FQ, pre_im1, suf_ip1), tinv)
-    zinv2 = F.mont_mul(FQ, zinv, zinv)
-    zinv3 = F.mont_mul(FQ, zinv2, zinv)
-    ax = F.mont_mul(FQ, px, zinv2)
-    ay = F.mont_mul(FQ, py, zinv3)
+    zx = zy = F.mont_mul(FQ, F.mont_mul(FQ, pre_im1, suf_ip1), tinv)
+    if jacobian:
+        zx = F.mont_mul(FQ, zy, zy)
+        zy = F.mont_mul(FQ, zx, zy)
+    ax = F.mont_mul(FQ, px, zx)
+    ay = F.mont_mul(FQ, py, zy)
     zero = torch.zeros_like(ax)
     return F.select(inf, zero, ax), F.select(inf, zero, ay), inf
 

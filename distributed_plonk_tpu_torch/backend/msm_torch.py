@@ -1,20 +1,38 @@
 """Variable-base MSM on word tensors: the port of backend/msm_jax.py.
 
-Sort-free Pippenger as in the JAX package: scalars split into W windows of
-c bits; the n points split into G contiguous groups, each (group, window
-lane) owning private buckets that a walk over the group's points fills;
-the group planes then fold bucketwise, and `finish` turns each window's
-buckets into one point and the windows into the total.
+Pippenger over a window-shifted commit key. A commitment is
+sum_j s_j P_j = sum_w sum_j d_wj (2^(c*w) P_j); the key is fixed across
+proofs, so `MsmContext` builds the W shifted copies of its n bases once
+(c * (W - 1) doublings on all n points, kernel 4's elementwise add, then
+one batch inversion to affine) and stores them point-major, one 96-byte
+row per point. An MSM is then ONE bucket accumulation over W * n points
+with one lane per handle, and no Horner over windows is left:
 
-  - keys of >= 256 points: SIGNED c = 7 digits (37 windows x 64 buckets,
-    digit d in [-64, 63] stored as d + 64; bucket |d| - 1, sign on y);
-  - smaller keys: UNSIGNED c = window_bits(n) digits (bucket 0 ignored).
+  - keys of >= 256 points: SIGNED c = 7 digits (37 windows, 64 buckets;
+    digit d in [-64, 63], bucket |d| - 1, sign on y);
+  - smaller keys: UNSIGNED c = window_bits(n) digits (256 / c windows,
+    2^c buckets, digit 0 skipped).
 
-Bucket accumulation is kernel 3 (csrc/msm_bucket.cu); `bucket_accumulate_ref`
-is its plain version, mirroring msm_jax._bucket_scan_signed step for step.
-The fold and finish tails are batches of complete projective adds —
-kernel 4 (curve_torch.proj_add). Digit extraction is plain torch over the
-field module (from_mont is kernel 1), as the JAX package leaves it to XLA.
+A commit batch of B handles runs four steps, each a kernel with its plain
+version beside it (CUDA tensors launch the kernel or raise; CPU tensors
+run the plain version):
+
+  1. `msm_digits` (kernel 3, csrc/msm_bucket.cu): canonical form and the
+     recode of every window in one thread per (handle, point); op words
+     and sort keys lane * nb + bucket (sentinel for skips).
+  2. a stable torch sort of the keys and the chunk boundaries (`_plan`):
+     index bookkeeping, the same for the kernel and its plain version.
+  3. `bucket_sums` (kernel 3): chunks of CHUNK points per thread, then a
+     pairwise tree of the chunk partials per bucket.
+  4. `msm_tail` (kernel 4, csrc/curve_add.cu): sum_i weight(i) * S_i per
+     handle in one launch, by segment running sums.
+
+The TPU walked its points in a sequential grid with bucket planes in VMEM;
+the card has no sequential grid, and one thread walking a group of points
+(the port's first version) left most of the card idle. Sorting turns the
+walk into independent chunks that fill the card. Every addition happens
+in a fixed order, so each kernel equals its plain version coordinate for
+coordinate; the bucket sums equal msm_jax's folded planes as points.
 
 Accumulators are homogeneous projective (X : Y : Z), identity (0 : 1 : 0);
 results decode on the host as x = X/Z, y = Y/Z.
@@ -22,17 +40,19 @@ results decode on the host as x = X/Z, y = Y/Z.
 
 import torch
 
-from ..constants import FQ_MONT_R, FQ_WORDS, FR_WORDS, Q_MOD, R_MOD
+from ..constants import FQ_MONT_R, FQ_WORDS, Q_MOD
 from . import _build
 from . import curve_torch as CT
 from . import field_torch as F
 from .field_torch import FQ, FR
-from .limbs import ints_to_words, to_tensor
+from .limbs import ints_to_words, lift, to_tensor
 
 SCALAR_BITS = 256
 W7 = 37                 # ceil(256 / 7)
 NEG_BIT = 8             # op word: bits [0, 8) bucket, bit 8 negate y,
 SKIP_BIT = 9            # bit 9 skip (msm_pallas's encoding)
+CHUNK = 32              # sorted points per bucket_sums thread
+TAIL_SEGMENTS = 8       # msm_tail's segments per handle (at most)
 
 
 def window_bits(n):
@@ -47,31 +67,13 @@ def window_bits(n):
     return 1
 
 
-def group_size(n, device):
-    """Number of point groups G (G | n, n / G >= 2).
-
-    On the card each (group, lane) pair is one thread walking n / G points
-    in order, so G trades thread count against the O(G * lanes * buckets)
-    fold: G ~ n / 256 keeps the fold a fraction of the walk. Elsewhere
-    msm_jax._group_size's rule (G <= n / 1024, capped at 512)."""
-    if torch.device(device).type == "cuda":
-        g = 1
-        while n % (2 * g) == 0 and 2 * g * 256 <= n:
-            g *= 2
-        return g
-    g = 512
-    while g > 1 and (n % g != 0 or n // g < 2 or g * 1024 > n):
-        g //= 2
-    return g
-
-
-# --- digits -----------------------------------------------------------------
+# --- digits (plain torch) ---------------------------------------------------
 
 def _canon_words(v, padded_n):
     """(8, ..., L) Montgomery handles -> (8, ..., padded_n) canonical int64
-    words (zero coefficients pad the tail)."""
+    words (zero coefficients pad the tail); plain multiply by 1."""
     v = torch.nn.functional.pad(v, (0, padded_n - v.shape[-1]))
-    return F._wide(F.from_mont(FR, v))
+    return F._wide(F.mont_mul_ref(FR, v, F.const(FR, 1, v.device, v.dim())))
 
 
 def _digit_rows(words, c, count):
@@ -83,7 +85,7 @@ def _digit_rows(words, c, count):
         bit = c * k
         i, off = bit >> 5, bit & 31
         lo = words[i] >> off
-        if off + c > 32 and i + 1 < FR_WORDS:
+        if off + c > 32 and i + 1 < len(words):
             lo = lo | (words[i + 1] << (32 - off))
         rows.append(lo & mask)
     return torch.stack(rows)
@@ -125,135 +127,281 @@ def signed_digits7_from_mont(v, padded_n):
 
 
 def signed_ops(packed, inf, n_buckets):
-    """Packed signed digits (M, n) + point-at-infinity mask (n,) -> op
+    """Packed signed digits (..., n) + point-at-infinity mask (n,) -> op
     words: |d| - 1 | neg << 8 | skip << 9 (msm_pallas.bucket_scan_signed)."""
     off = packed - n_buckets
     neg = off < 0
     mag = off.abs()
-    skip = (mag == 0) | inf[None, :]
+    skip = (mag == 0) | inf
     idx = mag.clamp(min=1) - 1
     return (idx | (neg.to(torch.int64) << NEG_BIT)
             | (skip.to(torch.int64) << SKIP_BIT)).to(torch.int32)
 
 
 def unsigned_ops(digits, inf):
-    """Unsigned digits (M, n) + inf mask -> op words (digit | inf << 9)."""
-    return (digits | (inf[None, :].to(torch.int64) << SKIP_BIT)).to(
-        torch.int32)
+    """Unsigned digits (..., n) + inf mask (n,) -> op words: the digit is
+    the bucket, and digit 0 (weight 0) skips like a point at infinity."""
+    skip = (digits == 0) | inf
+    return (digits | (skip.to(torch.int64) << SKIP_BIT)).to(torch.int32)
 
 
-# --- kernel 3: bucket accumulation ------------------------------------------
-
-def bucket_accumulate_ref(px, py, ops, group, n_buckets):
-    """Plain version of kernel 3: msm_jax._bucket_scan(_signed)'s scan, step
-    by step. px/py (12, n) affine Montgomery; ops (M, n) op words. Returns
-    ((12, G, M, n_buckets),)*3 projective planes; bucket b of (group g,
-    lane m) = the sum of g's points whose op selects b."""
-    M, n = ops.shape
-    steps = n // group
-    planes = CT.proj_inf((group, M, n_buckets), px.device)
-    sx_all = px.reshape(FQ_WORDS, group, steps)
-    sy_all = py.reshape(FQ_WORDS, group, steps)
-    sops = ops.to(torch.int64).reshape(M, group, steps)
-    for s in range(steps):
-        op = sops[:, :, s].transpose(0, 1)              # (G, M)
-        idx = op & (n_buckets - 1)
-        neg = ((op >> NEG_BIT) & 1) != 0
-        skip = ((op >> SKIP_BIT) & 1) != 0
-        gidx = idx[None, :, :, None].expand(FQ_WORDS, group, M, 1)
-        cur = tuple(torch.gather(p, 3, gidx)[..., 0] for p in planes)
-        sx, sy = sx_all[:, :, s], sy_all[:, :, s]       # (12, G)
-        qy = torch.where(neg[None], F.neg(FQ, sy)[:, :, None],
-                         sy[:, :, None])
-        sxb = sx[:, :, None].expand(cur[0].shape)
-        nv = CT.proj_add_mixed_ref(cur, (sxb, qy))
-        nv = tuple(torch.where(skip[None], c, v) for c, v in zip(cur, nv))
-        planes = tuple(p.scatter(3, gidx, v[..., None])
-                       for p, v in zip(planes, nv))
-    return planes
+def op_keys(ops, n_buckets, shifted):
+    """(B, W, n) op words -> (B, W, n) int32 sort keys lane * nb + bucket,
+    the sentinel lanes * nb for a skip. The lane is the handle over the
+    shifted key, (handle, window) over the base key."""
+    B, W, _ = ops.shape
+    lanes = B if shifted else B * W
+    lane = torch.arange(lanes, device=ops.device)
+    lane = lane.reshape(B, 1, 1) if shifted else lane.reshape(B, W, 1)
+    o = ops.to(torch.int64)
+    skip = ((o >> SKIP_BIT) & 1) != 0
+    return torch.where(skip, lanes * n_buckets,
+                       lane * n_buckets + (o & 0xFF)).to(torch.int32)
 
 
-def bucket_accumulate_cuda(px, py, ops, group, n_buckets):
-    """Kernel 3 launch (see bucket_accumulate_ref for the contract)."""
-    for t in (px, py):
-        F._check_words(FQ, t, "bucket_accumulate points")
-    M, n = ops.shape
-    if px.shape != (FQ_WORDS, n) or py.shape != (FQ_WORDS, n):
-        raise ValueError("bucket_accumulate: points must be (12, %d)" % n)
-    if ops.dtype != torch.int32 or not ops.is_contiguous():
-        raise ValueError("bucket_accumulate: ops must be contiguous int32")
-    if len({px.device, py.device, ops.device}) != 1 \
-            or px.device.type != "cuda":
-        raise ValueError("bucket_accumulate: expected one CUDA device")
-    if n % group or n_buckets & (n_buckets - 1) or n_buckets > 256:
-        raise ValueError("bucket_accumulate: bad group/bucket count")
-    planes = tuple(torch.empty((FQ_WORDS, group, M, n_buckets),
-                               dtype=torch.int32, device=px.device)
-                   for _ in range(3))
+# --- kernel 3, step 1: digit decode -----------------------------------------
+
+def msm_digits_ref(v, inf, c, signed, shifted):
+    """Plain version of msm_digits: (8, B, n) Montgomery Fr handles + (n,)
+    bool inf mask -> ((B, W, n) op words, (B, W, n) sort keys)."""
+    words = _canon_words(v, v.shape[-1])
+    if signed:
+        ops = signed_ops(signed_digits7_from_canon(words), inf, 1 << (c - 1))
+    else:
+        ops = unsigned_ops(digits_from_canon(words, c), inf)
+    ops = ops.transpose(0, 1).contiguous()
+    return ops, op_keys(ops, 1 << (c - 1) if signed else 1 << c, shifted)
+
+
+def msm_digits_cuda(v, inf, c, signed, shifted):
+    """Kernel 3's digit-decode launch (see msm_digits_ref)."""
+    F._check_words(FR, v, "msm_digits scalars")
+    if v.dim() != 3 or inf.shape != (v.shape[2],) or inf.dtype != torch.bool:
+        raise ValueError("msm_digits: expected (8, B, n) scalars and an "
+                         "(n,) bool mask")
+    if v.device.type != "cuda" or inf.device != v.device:
+        raise ValueError("msm_digits: expected one CUDA device")
+    if signed and c != 7:
+        raise ValueError("msm_digits: signed digits are c = 7")
+    _, B, n = v.shape
+    W = W7 if signed else SCALAR_BITS // c
+    nb = 1 << (c - 1) if signed else 1 << c
+    ops = torch.empty((B, W, n), dtype=torch.int32, device=v.device)
+    keys = torch.empty_like(ops)
+    flags = inf.to(torch.uint8)
     lib = _build.load()["msm"]
-    with torch.cuda.device(px.device):
-        rc = lib.dpt_bucket_accumulate(
-            planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(),
-            px.data_ptr(), py.data_ptr(), ops.data_ptr(), group, M,
-            n_buckets, n, F._stream(px))
-    _build.check(rc, "bucket_accumulate")
-    _build.LAUNCHES["bucket_accumulate"] += 1
-    return planes
+    with torch.cuda.device(v.device):
+        rc = lib.dpt_msm_digits(ops.data_ptr(), keys.data_ptr(),
+                                v.data_ptr(), flags.data_ptr(), B, n, c, W,
+                                nb, int(signed), int(shifted), F._stream(v))
+    _build.check(rc, "msm_digits")
+    _build.LAUNCHES["msm_digits"] += 1
+    return ops, keys
 
 
-def bucket_accumulate(px, py, ops, group, n_buckets):
-    if px.device.type == "cpu":
-        return bucket_accumulate_ref(px, py, ops, group, n_buckets)
-    return bucket_accumulate_cuda(px.contiguous(), py.contiguous(),
-                                  ops.contiguous(), group, n_buckets)
+def msm_digits(v, inf, c, signed, shifted):
+    if v.device.type == "cpu":
+        return msm_digits_ref(v, inf, c, signed, shifted)
+    return msm_digits_cuda(v.contiguous(), inf.contiguous(), c, signed,
+                           shifted)
 
 
-# --- fold and finish (kernel 4 batches) -------------------------------------
+# --- kernel 3, steps 2 and 3: sort and chunked accumulation -----------------
 
-def fold_planes(bx, by, bz):
-    """((12, G, *rest),)*3 projective planes -> ((12, *rest),)*3, the
-    bucketwise sum over G as a pairwise tree of complete adds (the point
-    equals msm_jax.fold_planes' sequential sum; only the projective
-    representative may differ)."""
-    planes = (bx, by, bz)
-    while planes[0].shape[1] > 1:
-        G = planes[0].shape[1]
-        if G % 2:
-            inf = CT.proj_inf((1,) + tuple(planes[0].shape[2:]),
-                              planes[0].device)
-            planes = tuple(torch.cat([p, i], dim=1)
-                           for p, i in zip(planes, inf))
-            G += 1
-        h = G // 2
-        planes = CT.proj_add(tuple(p[:, :h] for p in planes),
-                             tuple(p[:, h:] for p in planes))
-    return tuple(p[:, 0] for p in planes)
+def point_major(x, y):
+    """(12, P) affine x, y -> the (P, 24) point-major key: one point's x and
+    y words contiguous, 96 bytes a row (six 16-byte loads)."""
+    return torch.cat([x, y]).t().contiguous()
 
 
-def finish(bx, by, bz, c, signed):
-    """(12, ..., W, B) folded buckets -> (12, ...) totals.
+def _plan(keys, n_lanes, n_buckets):
+    """The stable sort of the keys and the run and chunk boundaries:
+    (order (N,) int32, count_start (nbk + 1,), chunk_start (nbk + 1,))
+    with nbk = n_lanes * n_buckets; bucket k's points are
+    order[count_start[k]:count_start[k + 1]], in point order, cut into
+    chunks chunk_start[k]:chunk_start[k + 1]. No host synchronisation."""
+    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
+    nbk = n_lanes * n_buckets
+    edges = torch.arange(nbk + 1, dtype=torch.int32, device=keys.device)
+    count_start = torch.searchsorted(sorted_keys, edges, out_int32=True)
+    chunks = (count_start[1:] - count_start[:-1] + CHUNK - 1) // CHUNK
+    chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                         device=keys.device),
+                             torch.cumsum(chunks, 0, dtype=torch.int32)])
+    return order.to(torch.int32), count_start, chunk_start
 
-    Running-sum aggregation per window (columns high weight first, one
-    add of stacked (run, acc) lanes per column, then one flush), then the
-    windows by Horner: total = sum_w 2^(c*w) * A_w. signed: B = 2^(c-1)
-    columns, column i of weight i + 1; unsigned: column 0 dropped."""
-    wins = bz.shape[-2]
-    cols = range(bz.shape[-1] - 1, -1 if signed else 0, -1)
-    inf = CT.proj_inf(tuple(bz.shape[1:-1]), bz.device)
-    run, acc = inf, inf
-    for j in list(cols) + [None]:
-        col = inf if j is None else tuple(p[..., j] for p in (bx, by, bz))
-        left = tuple(torch.stack([r, a], dim=1) for r, a in zip(run, acc))
-        right = tuple(torch.stack([x, r], dim=1) for x, r in zip(col, run))
-        out = CT.proj_add(left, right)
-        run = tuple(o[:, 0] for o in out)
-        acc = tuple(o[:, 1] for o in out)
-    total = tuple(a[..., wins - 1] for a in acc)
-    for w in range(wins - 2, -1, -1):
-        for _ in range(c):
-            total = CT.proj_add(total, total)
-        total = CT.proj_add(total, tuple(a[..., w] for a in acc))
-    return total
+
+def bucket_sums_ref(key, ops, keys, n_lanes, n_buckets):
+    """Plain version of bucket_sums. key: (P, 24) point-major affine
+    Montgomery points; ops / keys: (n_lanes * P) elements, element
+    e = lane * P + point. Returns ((12, n_lanes, n_buckets),)*3: bucket b
+    of lane m = the sum of the points whose op in lane m selects b, added
+    in the kernel's order (chunks of CHUNK sorted points from the
+    identity, then the pairwise tree over each bucket's chunks)."""
+    dev = key.device
+    P = key.shape[0]
+    nbk = n_lanes * n_buckets
+    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets)
+    cs, ks = count_start.long(), chunk_start.long()
+    n_valid, n_chunks = int(cs[-1]), int(ks[-1])
+    e = order[:n_valid].long()
+    bucket = keys.reshape(-1).long()[e]
+    rank = torch.arange(n_valid, device=dev) - cs[bucket]
+    chunk_id = ks[bucket] + rank // CHUNK
+    step = rank % CHUNK
+    pts = key[e % P]
+    px, py = pts[:, :FQ_WORDS].t(), pts[:, FQ_WORDS:].t()
+    neg = ((ops.reshape(-1)[e].long() >> NEG_BIT) & 1) != 0
+    py = torch.where(neg[None], F.neg(FQ, py), py)
+
+    acc = CT.proj_inf((n_chunks,), dev)
+    for t in range(CHUNK):
+        sel = (step == t).nonzero()[:, 0]
+        if sel.numel() == 0:
+            break
+        at = chunk_id[sel]
+        cur = tuple(a[:, at] for a in acc)
+        new = CT.proj_add_mixed_ref(cur, (px[:, sel], py[:, sel]))
+        for a, v in zip(acc, new):
+            a[:, at] = v
+
+    counts = ks[1:] - ks[:-1]
+    owner = torch.repeat_interleave(torch.arange(nbk, device=dev), counts)
+    local = torch.arange(n_chunks, device=dev) - ks[owner]
+    size = counts[owner]
+    s = 1
+    while n_chunks and s < int(counts.max()):
+        at = ((local % (2 * s) == 0) & (local + s < size)).nonzero()[:, 0]
+        new = CT.proj_add_ref(tuple(a[:, at] for a in acc),
+                              tuple(a[:, at + s] for a in acc))
+        for a, v in zip(acc, new):
+            a[:, at] = v
+        s *= 2
+
+    out = CT.proj_inf((nbk,), dev)
+    full = (counts > 0).nonzero()[:, 0]
+    for o, a in zip(out, acc):
+        o[:, full] = a[:, ks[full]]
+    return tuple(o.reshape(FQ_WORDS, n_lanes, n_buckets) for o in out)
+
+
+def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets):
+    """Kernel 3's accumulation launch (see bucket_sums_ref): the sort and
+    boundaries in torch, then the chunk and tree kernels."""
+    if key.dtype != torch.int32 or key.dim() != 2 or key.shape[1] != 24 \
+            or not key.is_contiguous():
+        raise ValueError("bucket_sums: key must be contiguous (P, 24) int32")
+    P = key.shape[0]
+    for t in (ops, keys):
+        if t.dtype != torch.int32 or t.numel() != n_lanes * P \
+                or not t.is_contiguous():
+            raise ValueError("bucket_sums: ops and keys must be contiguous "
+                             "int32 of %d elements" % (n_lanes * P))
+    if len({key.device, ops.device, keys.device}) != 1 \
+            or key.device.type != "cuda":
+        raise ValueError("bucket_sums: expected one CUDA device")
+    if n_buckets > 256:
+        raise ValueError("bucket_sums: at most 256 buckets")
+    nbk = n_lanes * n_buckets
+    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets)
+    cmax = ops.numel() // CHUNK + nbk          # >= chunk_start[nbk]
+    partials = torch.empty((cmax, 36), dtype=torch.int32, device=key.device)
+    out = tuple(torch.empty((FQ_WORDS, n_lanes, n_buckets), dtype=torch.int32,
+                            device=key.device) for _ in range(3))
+    lib = _build.load()["msm"]
+    with torch.cuda.device(key.device):
+        rc = lib.dpt_bucket_sums(
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            partials.data_ptr(), key.data_ptr(), ops.data_ptr(),
+            order.data_ptr(), count_start.data_ptr(), chunk_start.data_ptr(),
+            P, nbk, cmax, CHUNK, F._stream(key))
+    _build.check(rc, "bucket_sums")
+    _build.LAUNCHES["bucket_sums"] += 1
+    return out
+
+
+def bucket_sums(key, ops, keys, n_lanes, n_buckets):
+    if key.device.type == "cpu":
+        return bucket_sums_ref(key, ops, keys, n_lanes, n_buckets)
+    return bucket_sums_cuda(key, ops.contiguous(), keys.contiguous(),
+                            n_lanes, n_buckets)
+
+
+# --- kernel 4: the MSM tail -------------------------------------------------
+
+def tail_shape(n_buckets):
+    """(segments S, columns per segment L) of msm_tail: S = min(8, nb)."""
+    S = min(TAIL_SEGMENTS, n_buckets)
+    return S, n_buckets // S
+
+
+def msm_tail_ref(bx, by, bz, signed):
+    """Plain version of msm_tail: ((12, B, nb),)*3 bucket sums -> ((12,
+    B),)*3 totals sum_i weight(i) * S_i, weight i + 1 signed and i
+    unsigned, in the kernel's order: segment running sums, the running sum
+    over segment totals and its doublings, the pairwise tree."""
+    add = CT.proj_add_ref
+    B, nb = bz.shape[1:]
+    S, L = tail_shape(nb)
+    cols = (bx, by, bz)
+    if not signed:      # column j = bucket j + 1, weight j + 1
+        inf = CT.proj_inf((B, 1), bz.device)
+        cols = tuple(torch.cat([c[..., 1:], i], dim=-1)
+                     for c, i in zip(cols, inf))
+    seg = tuple(c.reshape(FQ_WORDS, B, S, L) for c in cols)
+    run = tuple(c[..., L - 1] for c in seg)
+    acc = run
+    for k in range(L - 2, -1, -1):
+        run = add(run, tuple(c[..., k] for c in seg))
+        acc = add(acc, run)
+    # sum_{s >= 1} s * T_s, then times L
+    lrun = tuple(r[..., S - 1] for r in run)
+    lacc = lrun
+    for s in range(S - 2, 0, -1):
+        lrun = add(lrun, tuple(r[..., s] for r in run))
+        lacc = add(lacc, lrun)
+    for _ in range(L.bit_length() - 1):
+        lacc = add(lacc, lacc)
+    # pairwise tree over the segments' weighted sums
+    acc = tuple(a.clone() for a in acc)
+    h = 1
+    while h < S:
+        at = torch.arange(0, S - h, 2 * h, device=bz.device)
+        new = add(tuple(a[..., at] for a in acc),
+                  tuple(a[..., at + h] for a in acc))
+        for a, v in zip(acc, new):
+            a[..., at] = v
+        h *= 2
+    return add(tuple(a[..., 0] for a in acc), lacc)
+
+
+def msm_tail_cuda(bx, by, bz, signed):
+    """Kernel 4's tail launch, one block per handle (see msm_tail_ref)."""
+    CT._check_point((bx, by, bz), tuple(bz.shape), bz.device, "msm_tail")
+    if bz.dim() != 3 or bz.device.type != "cuda":
+        raise ValueError("msm_tail: expected (12, B, nb) CUDA bucket sums")
+    B, nb = bz.shape[1:]
+    S, L = tail_shape(nb)
+    if nb & (nb - 1) or S < 2:
+        raise ValueError("msm_tail: nb must be a power of two >= 2")
+    out = tuple(torch.empty((FQ_WORDS, B), dtype=torch.int32,
+                            device=bz.device) for _ in range(3))
+    lib = _build.load()["curve"]
+    with torch.cuda.device(bz.device):
+        rc = lib.dpt_msm_tail(out[0].data_ptr(), out[1].data_ptr(),
+                              out[2].data_ptr(), bx.data_ptr(),
+                              by.data_ptr(), bz.data_ptr(), B, nb, S, L,
+                              int(signed), F._stream(bz))
+    _build.check(rc, "msm_tail")
+    _build.LAUNCHES["msm_tail"] += 1
+    return out
+
+
+def msm_tail(bx, by, bz, signed):
+    if bz.device.type == "cpu":
+        return msm_tail_ref(bx, by, bz, signed)
+    return msm_tail_cuda(bx.contiguous(), by.contiguous(), bz.contiguous(),
+                         signed)
 
 
 # --- contexts ---------------------------------------------------------------
@@ -278,6 +426,24 @@ def points_to_device(bases_affine, pad, device):
             torch.tensor(infs, device=device))
 
 
+def shifted_key(x, y, inf, c, windows):
+    """(12, n) affine bases -> the (windows * n, 24) point-major key of
+    2^(c*w) P_j at row w * n + j: c doublings (P + P, kernel 4) per window
+    on all n points, then ONE homogeneous batch inversion to affine. Rows
+    of points at infinity hold (0, 0); their ops always skip."""
+    one = F.one_like(FQ, x)
+    p = (x, F.select(inf, one, y), F.select(inf, torch.zeros_like(x), one))
+    planes = [p]
+    for _ in range(windows - 1):
+        for _ in range(c):
+            p = CT.proj_add(p, p)
+        planes.append(p)
+    stacked = tuple(torch.cat([q[i] for q in planes], dim=1)
+                    for i in range(3))
+    ax, ay, _ = CT.batch_to_affine(stacked, jacobian=False)
+    return point_major(ax, ay)
+
+
 class DeviceCommitKey:
     """A commit key held on device as Jacobian (12, n) Montgomery tensors;
     identity padding columns (z == 0) are part of the key."""
@@ -291,85 +457,50 @@ class DeviceCommitKey:
 
 
 class MsmContext:
-    """Device-resident base set, reused across commitments (device None:
-    the card)."""
+    """Device-resident window-shifted base set, reused across commitments
+    (device None: the card)."""
 
-    # handles committed per bucket-accumulation launch: every lane of the
-    # batch shares the point walk, and the card wants the threads
+    # handles committed per launch sequence: the sort, chunks and tail of a
+    # batch are shared by its handles
     BATCH_CHUNK = 32
 
     def __init__(self, bases, device=None):
         self.device = F.resolve_device(device, "MsmContext")
         n = len(bases)
         self.n = n
-        pad = n % 2  # groups need >= 2 steps
-        self.padded_n = n + pad
-        self.signed = self.padded_n >= 256
-        self.c = 7 if self.signed else window_bits(self.padded_n)
+        self.signed = n >= 256
+        self.c = 7 if self.signed else window_bits(n)
         self.windows = W7 if self.signed else SCALAR_BITS // self.c
         self.n_buckets = 1 << (self.c - 1) if self.signed else 1 << self.c
-        self.group = group_size(self.padded_n, self.device)
         if isinstance(bases, DeviceCommitKey):
-            point = bases.point
-            if pad:
-                point = tuple(torch.nn.functional.pad(p, (0, pad))
-                              for p in point)
-            self.point = CT.batch_to_affine(point)
+            ax, ay, self.inf = CT.batch_to_affine(bases.point)
         else:
-            self.point = points_to_device(bases, pad, self.device)
+            ax, ay, self.inf = points_to_device(bases, 0, self.device)
+        self.key = shifted_key(ax, ay, self.inf, self.c, self.windows)
 
-    def _ops(self, words):
-        """(8, B, padded_n) canonical int64 words -> (B * W, n) op words."""
-        B = words.shape[1]
-        if self.signed:
-            digits = signed_digits7_from_canon(words)    # (W, B, n)
-        else:
-            digits = digits_from_canon(words, self.c)
-        flat = digits.transpose(0, 1).reshape(B * self.windows,
-                                              self.padded_n)
-        inf = self.point[2]
-        if self.signed:
-            return signed_ops(flat, inf, self.n_buckets)
-        return unsigned_ops(flat, inf)
-
-    def _totals(self, words):
-        """(8, B, padded_n) canonical words -> B affine host points."""
-        B = words.shape[1]
-        ax, ay, _ = self.point
-        planes = bucket_accumulate(ax, ay, self._ops(words), self.group,
-                                   self.n_buckets)
-        folded = fold_planes(*planes)                    # (12, B*W, nb)
-        folded = tuple(p.reshape(FQ_WORDS, B, self.windows, self.n_buckets)
-                       for p in folded)
-        return CT.proj_to_affine(finish(*folded, c=self.c,
-                                        signed=self.signed))
+    def stack(self, hs):
+        """(8, L <= n) handles -> one (8, B, n) zero-padded batch."""
+        for h in hs:
+            assert h.shape[1] <= self.n, (tuple(h.shape), self.n)
+        return torch.stack([torch.nn.functional.pad(
+            h.to(self.device), (0, self.n - h.shape[1])) for h in hs], dim=1)
 
     def msm_mont_limbs_many(self, hs):
         """Commit (8, L <= n) Montgomery Fr coefficient handles -> affine
-        host points; digit extraction runs on device."""
+        host points."""
         out = []
         for i in range(0, len(hs), self.BATCH_CHUNK):
-            part = hs[i:i + self.BATCH_CHUNK]
-            for h in part:
-                assert h.shape[1] <= self.n, (tuple(h.shape), self.n)
-            stacked = torch.stack([torch.nn.functional.pad(
-                h.to(self.device), (0, self.padded_n - h.shape[1]))
-                for h in part], dim=1)
-            out.extend(self._totals(_canon_words(stacked, self.padded_n)))
+            v = self.stack(hs[i:i + self.BATCH_CHUNK])
+            ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
+            sums = bucket_sums(self.key, ops, keys, v.shape[1],
+                               self.n_buckets)
+            out.extend(CT.proj_to_affine(msm_tail(*sums, self.signed)))
         return out
 
     def msm_many(self, scalar_lists):
         """B MSMs over host int scalar lists."""
-        out = []
-        for i in range(0, len(scalar_lists), self.BATCH_CHUNK):
-            words = []
-            for s in scalar_lists[i:i + self.BATCH_CHUNK]:
-                assert len(s) <= self.n
-                s = [x % R_MOD for x in s] + [0] * (self.padded_n - len(s))
-                words.append(F._wide(to_tensor(ints_to_words(s, FR_WORDS),
-                                               self.device)))
-            out.extend(self._totals(torch.stack(words, dim=1)))
-        return out
+        return self.msm_mont_limbs_many([lift(s, self.device)
+                                         for s in scalar_lists])
 
     def msm(self, scalars):
         return self.msm_many([scalars])[0]

@@ -1,5 +1,6 @@
-"""Each of the port's four CUDA kernels against its plain torch version on
-the card, exactly (tolerance 0: every value is a canonical integer).
+"""Each of the port's CUDA kernels against its plain torch version on the
+card, exactly (tolerance 0: every value is a canonical integer, and every
+addition happens in a fixed order).
 
 Marked `cuda`; every test skips without a card. This file imports neither
 jax nor the JAX package, so it also runs where only the port's
@@ -38,6 +39,12 @@ def _values(mod, n, seed):
     return vals
 
 
+def _equal(got, want):
+    if isinstance(got, (tuple, list)):
+        return all(_equal(g, w) for g, w in zip(got, want))
+    return torch.equal(got, want)
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_mont_mul_kernel_matches_plain(field):
     dev = _card()
@@ -59,26 +66,58 @@ def test_ntt_kernel_matches_plain(inverse, coset):
                        N.ntt_ref(plan, v, inverse, coset))
 
 
-def test_bucket_and_add_kernels_match_plain():
-    dev = _card()
-    n, group = 512, 4
-    rng = np.random.default_rng(4)
+def _key(n, seed, dev):
+    rng = np.random.default_rng(seed)
     points = [C.g1_mul(C.G1_GEN, int(rng.integers(1, 1 << 62)))
               for _ in range(n - 2)] + [None, None]
-    px, py, inf = M.points_to_device(points, 0, dev)
-    words = torch.stack([F._wide(TL.to_tensor(TL.ints_to_words(
-        _values(R_MOD, n, 5 + b), 8), dev)) for b in range(2)], dim=1)
-    digits = M.signed_digits7_from_canon(words)               # (37, 2, n)
-    ops = M.signed_ops(digits.transpose(0, 1).reshape(-1, n), inf, 64)
-    got = M.bucket_accumulate_cuda(px, py, ops, group, 64)
-    want = M.bucket_accumulate_ref(px, py, ops, group, 64)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    p = tuple(c[:, :2].contiguous() for c in got)
-    q = tuple(c[:, 2:].contiguous() for c in got)
-    assert all(torch.equal(g, w) for g, w in
-               zip(CT._add_cuda(p, q), CT.proj_add_ref(p, q)))
-    affine = tuple(c.reshape(12, -1)[:, :64].contiguous() for c in (px, py))
-    head = tuple(c.reshape(12, -1)[:, :64].contiguous() for c in p)
-    assert all(torch.equal(g, w) for g, w in
-               zip(CT._add_cuda(head, affine),
-                   CT.proj_add_mixed_ref(head, affine)))
+    return M.points_to_device(points, 0, dev)
+
+
+@pytest.mark.parametrize("shifted", [True, False])
+def test_msm_kernels_match_plain(shifted, monkeypatch):
+    """msm_digits, bucket_sums (chunk 32 and 2) and msm_tail: the signed
+    c = 7 path over 512 base points, in both lane layouts."""
+    dev = _card()
+    n, B = 512, 3
+    px, py, inf = _key(n, 4, dev)
+    v = torch.stack([TL.lift(_values(R_MOD, n, 5 + b), dev)
+                     for b in range(B)], dim=1)                 # (8, B, n)
+    got = M.msm_digits_cuda(v, inf, 7, True, shifted)
+    assert _equal(got, M.msm_digits_ref(v, inf, 7, True, shifted))
+    ops, keys = got
+    lanes = B if shifted else B * M.W7
+    # over the base key (n points) or a key of W * n points
+    key = M.point_major(px, py)
+    if shifted:
+        key = key.repeat(M.W7, 1)
+    for chunk in (M.CHUNK, 2):
+        monkeypatch.setattr(M, "CHUNK", chunk)
+        sums = M.bucket_sums_cuda(key, ops, keys, lanes, 64)
+        assert _equal(sums, M.bucket_sums_ref(key, ops, keys, lanes, 64))
+    assert _equal(M.msm_tail_cuda(*sums, signed=True),
+                  M.msm_tail_ref(*sums, signed=True))
+
+
+@pytest.mark.parametrize("nb", [16, 4, 2])
+def test_msm_tail_kernel_matches_plain_unsigned(nb):
+    dev = _card()
+    px, py, _ = _key(3 * nb, 6, dev)
+    sums = tuple(c.reshape(12, 3, nb).contiguous()
+                 for c in CT.from_affine(px, py, torch.zeros_like(px[0]) != 0))
+    assert _equal(M.msm_tail_cuda(*sums, signed=False),
+                  M.msm_tail_ref(*sums, signed=False))
+
+
+def test_add_kernels_match_plain():
+    dev = _card()
+    px, py, inf = _key(256, 7, dev)
+    p = CT.from_affine(px[:, :128].contiguous(), py[:, :128].contiguous(),
+                       inf[:128])
+    q = tuple(c.contiguous() for c in CT.proj_add_ref(p, p))
+    assert _equal(CT._add_cuda(p, q), CT.proj_add_ref(p, q))
+    affine = (px[:, 128:].contiguous(), py[:, 128:].contiguous())
+    assert _equal(CT._add_cuda(q, affine), CT.proj_add_mixed_ref(q, affine))
+    # the shifted key's build (doublings through the kernel) equals the
+    # plain build on the CPU
+    assert torch.equal(M.shifted_key(px, py, inf, 7, 3).cpu(),
+                       M.shifted_key(px.cpu(), py.cpu(), inf.cpu(), 7, 3))

@@ -107,6 +107,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     p = CT.proj_inf((4,), "cpu")
     with pytest.raises(ValueError):
         CT._add_cuda(p, p)
-    ops = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        M.bucket_accumulate_cuda(p[0], p[1], ops, 2, 64)
+        M.msm_digits_cuda(a[:, None, :], torch.zeros(4, dtype=torch.bool),
+                          7, True, True)
+    ops = torch.zeros((1, 1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        M.bucket_sums_cuda(M.point_major(p[0], p[1]), ops, ops, 1, 64)
+    sums = CT.proj_inf((2, 64), "cpu")
+    with pytest.raises(ValueError):
+        M.msm_tail_cuda(*sums, signed=True)
