@@ -11,7 +11,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    the card, on seeded inputs at the main path's shapes, with tolerance 0
    (every value is an integer in canonical form, every addition in a
    fixed order), each timed as calls from Python ("launch_ms", host path
-   included) beside its plain version and its bound. The MSM entries
+   included) beside its plain version and its bound. The Montgomery
+   product also runs on broadcast, sliced and two-axis operands (one
+   launch and no copy under the profiler), and its call path from Python
+   is timed piece by piece; the NTT runs every mode at n = 2, 32, 512,
+   2^13 and 2^16 and is timed at round 3's batch of 25. The MSM entries
    (msm_digits, bucket_sums, msm_tail) run one round-1 commit batch, 5
    handles of width n + 2 over the commit key's window-shifted copy
    (304,288 points), whose build time is printed with the sort's.
@@ -22,8 +26,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    launch counters are zeroed just before preprocess and read just after
    it (the elementwise add builds the shifted key there), then zeroed
    before the warm prove and read after it: every other kernel must have
-   launched there, the MSM entries once per commit batch, and the
-   elementwise add not at all.
+   launched there, the MSM entries once per commit batch, the NTT at most
+   3 launches per call, and the elementwise add not at all.
 4. Device time: torch.profiler's CUDA kernel times for one launch of each
    kernel at its parity shape, and for one more warm prove (device busy
    time by kernel and the idle share; "not measured" if the profiler
@@ -35,9 +39,11 @@ line is {"ok": true, "device": {...}}; without a card it exits non-zero
 before printing any result.
 """
 
+import gc
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -79,18 +85,23 @@ def _events_ms(run):
 
 
 def launch_ms(fn, reps):
-    """Mean milliseconds of fn() over reps calls from Python (CUDA events),
-    after one warm-up call: the device time plus the host's launch path
-    (ctypes, allocation, checks) wherever that is the longer."""
-    fn()
+    """Milliseconds of fn() per call from Python (CUDA events around reps
+    calls), the median of three windows after an untimed one: the device
+    time plus the host's launch path (ctypes, allocation, checks) wherever
+    that is the longer. A window that follows a pause of the card can run
+    several times slower than the next ones (call_spread shows it), so one
+    window alone does not measure the call path."""
+    for _ in range(reps):
+        fn()
     torch.cuda.synchronize()
-    return _events_ms(lambda: [fn() for _ in range(reps)]) / reps
+    return sorted(_events_ms(lambda: [fn() for _ in range(reps)]) / reps
+                  for _ in range(3))[1]
 
 
 def graph_ms(fn, reps):
     """Mean device milliseconds of one fn(): reps calls captured in a CUDA
-    graph, the graph replayed once untimed and once between CUDA events,
-    so the host's launch path is not in the time."""
+    graph, the graph replayed once untimed, then three times between CUDA
+    events (the median), so the host's launch path is not in the time."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -99,7 +110,7 @@ def graph_ms(fn, reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    ms = _events_ms(graph.replay) / reps
+    ms = sorted(_events_ms(graph.replay) / reps for _ in range(3))[1]
     del graph
     return ms
 
@@ -177,6 +188,119 @@ def profile_prove(fn):
           "%.4f s, idle share %.3f" % (wall, busy, 1 - busy / wall))
     for key, count, us in rows[:15]:
         print("  %-60s %6d launches %10.1f us" % (key[:60], count, us))
+    copies = [(c, us) for k, c, us in rows if "Memcpy DtoD" in k]
+    print("device-to-device copies in the profiled warm prove: %d, %.1f us"
+          % (sum(c for c, _ in copies), sum(us for _, us in copies)))
+
+
+def ptxas_report(log):
+    """(kernel, registers line, spill line) for each entry function that
+    `nvcc -Xptxas -v` reported."""
+    out, fn, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((fn, line.split(":", 1)[-1].strip(), spill))
+    return out
+
+
+def call_path_us(fn, reps):
+    """Host microseconds per call of fn(), host clock over reps calls
+    after a warm-up call, the device drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+class GcPauses:
+    """Python garbage collections (generation, ms) while the block runs."""
+
+    def __enter__(self):
+        self.pauses, self._t = [], {}
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase_, info):
+        if phase_ == "start":
+            self._t[info["generation"]] = time.perf_counter()
+        else:
+            t = self._t.pop(info["generation"], None)
+            if t is not None:
+                self.pauses.append((info["generation"],
+                                    (time.perf_counter() - t) * 1e3))
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def summary(self):
+        full = [ms for g, ms in self.pauses if g == 2]
+        return "%d collections, %d full (%.2f ms)" % (
+            len(self.pauses), len(full), sum(full))
+
+
+def call_spread(fn, reps):
+    """One entry's calls from Python, reps of them, run right after
+    host-only work: the CUDA-event time per call of three windows in a row
+    (one warm-up call before the first, as an earlier launch_ms took it)
+    with the garbage collections each window saw, one more window with
+    the collector off, one after 50 ms of host-only work and one after
+    50 ms of device work, the card's SM clock, and the median and largest
+    host time of one call."""
+    out = {}
+    fn()
+    torch.cuda.synchronize()
+    for i in range(3):
+        with GcPauses() as pauses:
+            ms = _events_ms(lambda: [fn() for _ in range(reps)]) / reps
+        out["events ms #%d" % (i + 1)] = "%.4f (gc: %s)" % (ms,
+                                                            pauses.summary())
+    gc.collect()
+    gc.disable()
+    try:
+        out["events ms, gc off"] = round(
+            _events_ms(lambda: [fn() for _ in range(reps)]) / reps, 4)
+    finally:
+        gc.enable()
+    # the same window after host-only work, then after ~50 ms of device
+    # work: does the card's idle state, not the call path, set the time?
+    for label, busy in (("after host-only work", False),
+                        ("after device work", True)):
+        x = torch.ones(2048, 2048, device="cuda")
+        torch.cuda.synchronize()
+        if busy:
+            t = time.perf_counter()
+            while time.perf_counter() - t < 0.05:
+                x = x @ x * 1e-3
+                torch.cuda.synchronize()
+        else:
+            t = time.perf_counter()
+            while time.perf_counter() - t < 0.05:
+                sum(range(1000))
+        ms = _events_ms(lambda: [fn() for _ in range(reps)]) / reps
+        out["events ms " + label] = round(ms, 4)
+    out["sm clock now"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    each = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        each.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
+    each.sort()
+    out["host us median"] = round(each[len(each) // 2], 2)
+    out["host us max"] = round(each[-1], 2)
+    return out
 
 
 def phase(name):
@@ -223,12 +347,14 @@ def main():
     print(smi, flush=True)
     t = time.perf_counter()
     _build.load()
-    print("kernels built and loaded in %.3f s (%s)"
-          % (time.perf_counter() - t, _build.source_hash()), flush=True)
+    print("kernels built and loaded in %.3f s (%s); nvcc seconds by "
+          "library: %s" % (time.perf_counter() - t, _build.source_hash(),
+                           json.dumps({k: round(v, 1) for k, v in
+                                       _build.build_seconds.items()})),
+          flush=True)
     for name, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas %s: %s" % (name, line.strip()))
+        for fn, regs, spill in ptxas_report(log):
+            print("ptxas %-6s %-40s %s; %s" % (name, fn[:40], regs, spill))
     ckt, _ = generate_circuit(rng=random.Random(11), height=32,
                               num_proofs=1)
     n = ckt.n
@@ -244,6 +370,7 @@ def main():
     # kernel name -> (one launch at its main-path shape, launches per
     # timing): phase 4 takes each kernel's device time from these
     runs = {}
+    bounds = {}     # rows that are timed but not in the kernels line
 
     def record(name, source, replaces, err, py_ms, plain_ms, nbytes, imads,
                shape):
@@ -286,7 +413,11 @@ def main():
         want, pms = plain_ms(lambda: F.mont_mul_ref(spec, a, b))
         err = max_abs_err(got, want)
         fn = (lambda a=a, b=b, spec=spec: F.mont_mul_cuda(spec, a, b))
-        py_ms = launch_ms(fn, 50)
+        with GcPauses() as pauses:
+            py_ms = launch_ms(fn, 50)
+        print("mont_mul %s launched from Python: %.4f ms per call over 50 "
+              "calls; garbage collections in that window: %s"
+              % (spec.name, py_ms, pauses.summary()))
         runs["mont_mul" if spec is F.FR else "mont_mul Fq"] = (fn, 50)
         L = spec.n_words
         imads = lanes * (FR_MUL_IMADS if L == 8 else FQ_MUL_IMADS)
@@ -301,9 +432,89 @@ def main():
                   "plain %.3f ms  bound %.4f ms (%s)"
                   % ("mont_mul", "Fq (12, 16384)", py_ms, pms,
                      bound_ms(nbytes, imads), bound_by(nbytes, imads)))
+        # the call path, piece by piece (host us per call): the entry, its
+        # allocation and bare launch, and the pieces the entry no longer
+        # runs (broadcast_tensors + contiguous, a device context, a stream
+        # object, the library lookup)
+        raw = _build.load()["field"].dpt_mont_mul
+        out = torch.empty_like(a)
+        stream = F._stream(a)
+        grid = (spec.index, out.data_ptr(), a.data_ptr(), lanes, 0, 1,
+                b.data_ptr(), lanes, 0, 1, 1, lanes, stream)
 
-    # K2: all four modes at 2^13 (batch 5, round 1's wires), then the
-    # round-3 mode (forward coset) at 2^16, batch 8
+        def ctx():
+            with torch.cuda.device(a.device):
+                pass
+
+        pieces = {
+            "entry mont_mul": lambda: F.mont_mul(spec, a, b),
+            "torch.empty": lambda: torch.empty_like(a),
+            "bare ctypes launch": lambda: raw(*grid),
+            "lane_layout": lambda: F.lane_layout(a, b),
+            "raw stream handle": lambda: F._stream(a),
+            "(gone) broadcast_tensors+contiguous": lambda: [
+                t.contiguous() for t in torch.broadcast_tensors(a, b)],
+            "(gone) torch.cuda.device context": ctx,
+            "(gone) current_stream().cuda_stream": lambda:
+                torch.cuda.current_stream(a.device).cuda_stream,
+            "(gone) _build.load() lookup": lambda: _build.load()["field"],
+        }
+        print("call path %s (%d lanes), host us per call: %s" % (
+            spec.name, lanes, json.dumps({k: round(call_path_us(f, 200), 2)
+                                          for k, f in pieces.items()})))
+        print("call spread %s, 200 calls of the entry: %s"
+              % (spec.name, json.dumps(call_spread(fn, 200))), flush=True)
+
+    # K1 on the operands the prover hands it, read through their strides:
+    # a broadcast (L, 1) scalar against 330 lanes (round 4's Horner), a
+    # slice x[:, i] of a stacked (L, 13, 2^16) tensor (round 3's
+    # selectors), two lane axes ((L, 5, 66) by (L, 5, 1)), one lane, and
+    # a width that is not a multiple of the 256-thread block
+    for spec in (F.FR, F.FQ):
+        stacked = rand_field(spec, 13 << 16).reshape(spec.n_words, 13,
+                                                     1 << 16)
+        cases = {
+            "broadcast (L,1) x (L,330)": (rand_field(spec, 3)[:, 1:2],
+                                          rand_field(spec, 330)),
+            "slice x[:, 7] of (L,13,2^16)": (stacked[:, 7],
+                                             stacked[:, 12]),
+            "(L,5,66) x (L,5,1)": (rand_field(spec, 330).reshape(
+                spec.n_words, 5, 66), rand_field(spec, 5).reshape(
+                    spec.n_words, 5, 1)),
+            "one lane": (rand_field(spec, 3)[:, 2:], rand_field(spec, 3)[
+                :, 2:]),
+            "4,099 lanes": (rand_field(spec, 4099), rand_field(spec, 4099)),
+        }
+        for label, (x, y) in cases.items():
+            err = max_abs_err(F.mont_mul_cuda(spec, x, y),
+                              F.mont_mul_ref(spec, x, y))
+            assert err == 0, (spec.name, label, err)
+        print("parity mont_mul %s strided/broadcast: %s: exact"
+              % (spec.name, ", ".join(cases)))
+        if spec is F.FR:
+            zs, acc = cases["broadcast (L,1) x (L,330)"]
+            x, y = cases["slice x[:, 7] of (L,13,2^16)"]
+            runs["mont_mul broadcast"] = (
+                lambda zs=zs, acc=acc: F.mont_mul_cuda(F.FR, acc, zs), 50)
+            runs["mont_mul slice"] = (
+                lambda x=x, y=y: F.mont_mul_cuda(F.FR, x, y), 50)
+            # one launch and no copy for a broadcast or a sliced operand
+            for label, (p, q) in (("broadcast", (acc, zs)),
+                                  ("slice", (x, y))):
+                torch.cuda.synchronize()
+                with _profiler() as prof:
+                    F.mont_mul(F.FR, p, q)
+                    torch.cuda.synchronize()
+                rows = _device_kernels(prof)
+                assert len(rows) == 1 and "mont_mul_kernel" in rows[0][0] \
+                    and rows[0][1] == 1, rows
+                print("mont_mul %s under the profiler: %s" % (label, ", ".join(
+                    "%s x%d" % (k[:40], c) for k, c, _ in rows)))
+
+    # K2: all four modes at 2^13 (batch 5, round 1's wires), at 2, 32 and
+    # 512 (one and two passes, odd log2 n, batch 3), the round-3 mode
+    # (forward coset) at 2^16 with batch 8 and 25, and the quotient's
+    # coset inverse at 2^16
     def ntt_case(size, batch, inverse, coset):
         plan = N.get_plan(size, dev)
         v = lift([rng.randrange(R_MOD) for _ in range(size * batch)],
@@ -312,21 +523,40 @@ def main():
         want, pms = plain_ms(lambda: N.ntt_ref(plan, v, inverse, coset))
         return plan, v, max_abs_err(got, want), pms
 
-    for inverse in (False, True):
-        for coset in (False, True):
-            _, _, err, pms = ntt_case(1 << 13, 5, inverse, coset)
-            assert err == 0, ("ntt", inverse, coset, err)
-            print("parity ntt 2^13 x5 inverse=%d coset=%d exact  plain "
-                  "%.3f ms" % (inverse, coset, pms))
-    plan, v, err, pms = ntt_case(1 << 16, 8, False, True)
-    runs["ntt"] = (lambda: N.ntt_cuda(plan, v, False, True), 10)
-    py_ms = launch_ms(runs["ntt"][0], 10)
-    size, batch = 1 << 16, 8
-    muls = batch * (size // 2 * 16 + size)      # butterflies + pre-scale
-    nbytes = 32 * (2 * batch * size + size // 2 + size)
-    record("ntt", "distributed_plonk_tpu_torch/csrc/ntt.cu",
-           "distributed_plonk_tpu/backend/ntt_pallas.py:341", err, py_ms, pms,
-           nbytes, muls * FR_MUL_IMADS, "coset fwd (8, 8, 65536)")
+    for size, batch in ((1 << 13, 5), (2, 3), (32, 3), (512, 3)):
+        for inverse in (False, True):
+            for coset in (False, True):
+                _, _, err, pms = ntt_case(size, batch, inverse, coset)
+                assert err == 0, ("ntt", size, inverse, coset, err)
+                print("parity ntt %d x%d inverse=%d coset=%d exact  plain "
+                      "%.3f ms" % (size, batch, inverse, coset, pms))
+    _, _, err, pms = ntt_case(1 << 16, 1, True, True)
+    assert err == 0, ("ntt coset inverse 2^16", err)
+    print("parity ntt 65536 x1 inverse=1 coset=1 exact  plain %.3f ms" % pms)
+    size = 1 << 16
+    for batch in (8, 25):
+        plan, v, err, pms = ntt_case(size, batch, False, True)
+        name = "ntt" if batch == 8 else "ntt x25"
+        runs[name] = ((lambda plan=plan, v=v: N.ntt_cuda(plan, v, False,
+                                                         True)), 10)
+        py_ms = launch_ms(runs[name][0], 10)
+        muls = batch * (size // 2 * 16 + size)  # butterflies + pre-scale
+        nbytes = 32 * (2 * batch * size + size // 2 + size)
+        if batch == 8:
+            record("ntt", "distributed_plonk_tpu_torch/csrc/ntt.cu",
+                   "distributed_plonk_tpu/backend/ntt_pallas.py:341", err,
+                   py_ms, pms, nbytes, muls * FR_MUL_IMADS,
+                   "coset fwd (8, 8, 65536)")
+        else:
+            assert err == 0, err
+            bounds["ntt x25"] = (nbytes, muls * FR_MUL_IMADS)
+            print("parity %-18s %-34s exact  launched from Python %.4f ms  "
+                  "plain %.3f ms  bound %.4f ms (%s)"
+                  % ("ntt", "coset fwd (8, 25, 65536)", py_ms, pms,
+                     bound_ms(*bounds["ntt x25"]),
+                     bound_by(*bounds["ntt x25"])), flush=True)
+    print("ntt passes: 2^16 %s, 2^13 %s (log2 rows per pass)"
+          % (N.get_plan(1 << 16, dev).digits, N.get_plan(1 << 13, dev).digits))
 
     # K3 and the K4 tail: the commit key (n + 3 powers padded to 8,224
     # points) shifted into its 37 windows (304,288 points), one round-1
@@ -478,6 +708,7 @@ def main():
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
+    ntt_calls = _build.CALLS["ntt"]
     blob = proof_io.serialize_proof(proof)
     assert blob == golden, "warm proof bytes differ from the fixture"
     t = time.perf_counter()
@@ -495,6 +726,9 @@ def main():
     for name in ("msm_digits", "bucket_sums", "msm_tail"):
         assert launches[name] == batches, (name, launches[name], batches)
     assert launches["proj_add"] == 0, launches
+    # the NTT: one launch per pass, at most 3 per call at 2^13 and 2^16
+    assert 0 < launches["ntt"] <= 3 * ntt_calls, (launches, ntt_calls)
+    kernels["ntt"]["calls"] = ntt_calls
     kernels["proj_add"]["launches"] = pre_launches["proj_add"]
     kernels["proj_add"]["launches_in"] = "preprocess"
     print("proof bytes == tests/fixtures/proof_merkle_h32_p1.hex (%d bytes); "
@@ -508,7 +742,8 @@ def main():
     print("spans warm: " + json.dumps(
         {k: round(v, 4) for k, v in tr_warm.totals(1).items()}))
     print("launches in preprocess: " + json.dumps(pre_launches))
-    print("launches in the warm prove: " + json.dumps(launches))
+    print("launches in the warm prove: " + json.dumps(launches)
+          + "; ntt calls %d" % ntt_calls)
     print("peak device memory %.1f MiB"
           % (torch.cuda.max_memory_allocated() / 2**20))
     done("prove", t0)
@@ -520,6 +755,9 @@ def main():
     profile_kernels(runs)
     profile_prove(lambda: prove(random.Random(1), ckt, pk, be))
     graph_kernels(runs, kernels)
+    nbytes, imads = bounds["ntt x25"]
+    print("ntt coset fwd (8, 25, 65536): bound %.4f ms (%s)"
+          % (bound_ms(nbytes, imads), bound_by(nbytes, imads)))
     done("profile", t0)
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -39,9 +40,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures (every function returns its launch's cudaGetLastError())
 SIGNATURES = {
-    "field": {"dpt_mont_mul": (_I, _V, _V, _V, _L, _V)},
-    "ntt": {"dpt_ntt_stage": (_V, _V, _V, _V, _I, _I, _L, _V),
-            "dpt_ntt_bitrev": (_V, _V, _I, _L, _V)},
+    "field": {"dpt_mont_mul": (_I, _V, _V, _L, _L, _L, _V, _L, _L, _L, _L,
+                               _L, _V)},
+    "ntt": {"dpt_ntt_pass": (_V, _V, _V, _V, _V, _V, _V, _V, _V)},
     "msm": {"dpt_msm_digits": (_V, _V, _V, _V, _I, _L, _I, _I, _I, _I, _I,
                                _V),
             "dpt_bucket_sums": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
@@ -55,18 +56,22 @@ SIGNATURES = {
 _lock = threading.Lock()
 _libs = None
 build_log = {}  # library name -> nvcc output (ptxas register/spill report)
+build_seconds = {}  # library name -> seconds until its nvcc finished
 
 # Launch counters, one plain integer per kernel entry: each wrapper adds one
-# where it launches its kernel (the NTT counts every stage and bit-reversal
-# launch; proj_add counts its full and mixed launches alike; bucket_sums
-# counts one per call, which launches its chunk and tree kernels).
+# where it launches its kernel (the NTT counts every pass it launches;
+# proj_add counts its full and mixed launches alike; bucket_sums counts one
+# per call, which launches its chunk and tree kernels). CALLS counts the
+# entry calls of the NTT, which launches one kernel per pass.
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
             "msm_tail": 0, "proj_add": 0}
+CALLS = {"ntt": 0}
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc():
@@ -91,16 +96,27 @@ def _build(out_dir):
     """Compile every source in parallel into out_dir; raise on failure."""
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
+    procs, outs, t0 = {}, {}, time.perf_counter()
     for name, src in SOURCES.items():
         tmp = os.path.join(out_dir, "lib%s.so.tmp%d" % (name, os.getpid()))
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+
+    def wait(name, proc):
+        outs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (_, proc) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     errors = []
     for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+        out = outs[name]
         build_log[name] = out
         if proc.returncode != 0:
             errors.append("%s (%s):\n%s" % (name, SOURCES[name], out))

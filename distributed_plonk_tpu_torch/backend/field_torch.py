@@ -6,7 +6,9 @@ JAX package's radix, so every canonical result has the same bits as
 field_jax's (`limbs.from_jax_limbs` is the bit-level map between them).
 
 `mont_mul` is kernel 1 (csrc/mont_mul.cu): on a CUDA tensor it launches the
-kernel, on a CPU tensor it runs `mont_mul_ref`, its plain torch version.
+kernel on the operands as they are (broadcast scalars and strided slices
+are read through their strides, never copied), on a CPU tensor it runs
+`mont_mul_ref`, its plain torch version.
 add / sub / neg are plain torch on either device (the JAX package computes
 them in XLA, outside any Pallas kernel); they widen the words to int64,
 since torch cannot add, shift or compare uint32.
@@ -108,14 +110,16 @@ def const(spec, value, device, ndim=2):
 
 def _sweep32(x):
     """Carry-propagate non-negative int64 word columns (each < 2^62):
-    returns (words < 2^32, carry out of the top word)."""
-    out = torch.empty_like(x)
+    returns (words < 2^32, carry out of the top word). The words are
+    stacked once at the end: a row-by-row assignment costs one
+    device-to-device copy per word."""
+    rows = []
     c = torch.zeros_like(x[0])
     for i in range(x.shape[0]):
         v = x[i] + c
-        out[i] = v & WORD_MASK
+        rows.append(v & WORD_MASK)
         c = v >> 32
-    return out, c
+    return torch.stack(rows), c
 
 
 def _reduce_once(spec, w, hi):
@@ -208,36 +212,94 @@ def mont_mul_ref(spec, a, b):
     return _from16(torch.where(take[None], d, hi))
 
 
-def _check_words(spec, t, what):
+def _check_words(spec, t, what, contiguous=True):
     if t.dtype != torch.int32:
         raise TypeError("%s: expected int32 words, got %s" % (what, t.dtype))
     if t.dim() < 1 or t.shape[0] != spec.n_words:
         raise ValueError("%s: expected (%d, ...) words, got %s"
                          % (what, spec.n_words, tuple(t.shape)))
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError("%s: expected a contiguous tensor" % what)
 
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t):
+    """The current CUDA stream of t's device, as an int handle."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _lane_strides(x, batch):
+    """x's strides along the broadcast batch shape (0 on broadcast axes)."""
+    pad = len(batch) - (x.dim() - 1)
+    shape, stride = x.shape[1:], x.stride()[1:]
+    return [0 if d < pad or shape[d - pad] == 1 else stride[d - pad]
+            for d in range(len(batch))]
+
+
+def _lane_grid(batch, sa, sb):
+    """Collapse the batch axes into at most (outer, inner) lanes: drop axes
+    of size 1 and merge neighbours that both operands step through evenly.
+    Returns ([outer, inner], [a's strides], [b's strides])."""
+    sizes, ga, gb = [1, 1], [0, 0], [0, 0]
+    for n, x, y in zip(batch, sa, sb):
+        if n == 1:
+            continue
+        if sizes[1] == 1 or (ga[1] == x * n and gb[1] == y * n):
+            sizes[1] *= n
+            ga[1], gb[1] = x, y
+        elif sizes[0] == 1:
+            sizes, ga, gb = [sizes[1], n], [ga[1], x], [gb[1], y]
+        else:
+            raise ValueError("mont_mul: batch shape %s with these strides "
+                             "needs more than two lane axes" % (batch,))
+    return sizes, ga, gb
+
+
+def lane_layout(a, b):
+    """How kernel 1 reads two (L, *batch) operands: (broadcast batch shape,
+    [outer, inner] lane counts, (word stride, [outer, inner] strides) of a,
+    the same of b). Lane (o, i) of operand x, word k, sits at
+    x[k * word + o * outer + i * inner] (in elements)."""
+    if a.shape == b.shape and a.is_contiguous() and b.is_contiguous():
+        lanes = a.numel() // a.shape[0]
+        return (tuple(a.shape[1:]), [1, lanes], (lanes, [0, 1]),
+                (lanes, [0, 1]))
+    batch = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    sizes, ga, gb = _lane_grid(batch, _lane_strides(a, batch),
+                               _lane_strides(b, batch))
+    return batch, sizes, (a.stride(0), ga), (b.stride(0), gb)
+
+
+_mont_mul_fn = None
+
+
 def mont_mul_cuda(spec, a, b):
-    """Kernel 1 launch: contiguous (L, *batch) int32 CUDA words of one
-    shape -> a*b*R^-1 mod p."""
-    _check_words(spec, a, "mont_mul a")
-    _check_words(spec, b, "mont_mul b")
-    if a.device.type != "cuda" or b.device != a.device:
+    """Kernel 1 launch on (L, *batch) int32 CUDA words whose batch shapes
+    broadcast, read through their strides (no operand is copied) -> a fresh
+    contiguous a*b*R^-1 mod p of the broadcast shape."""
+    global _mont_mul_fn
+    _check_words(spec, a, "mont_mul a", contiguous=False)
+    _check_words(spec, b, "mont_mul b", contiguous=False)
+    dev = a.device
+    if dev.type != "cuda" or b.device != dev:
         raise ValueError("mont_mul: operands must lie on one CUDA device")
-    if a.shape != b.shape:
-        raise ValueError("mont_mul: shapes differ %s %s"
-                         % (tuple(a.shape), tuple(b.shape)))
-    out = torch.empty_like(a)
-    lib = _build.load()["field"]
-    with torch.cuda.device(a.device):
-        rc = lib.dpt_mont_mul(spec.index, out.data_ptr(), a.data_ptr(),
-                              b.data_ptr(), a.numel() // spec.n_words,
-                              _stream(a))
+    batch, sizes, (wa, ga), (wb, gb) = lane_layout(a, b)
+    if sizes[0] * sizes[1] >= 1 << 31:
+        raise ValueError("mont_mul: too many lanes %d" % (sizes[0] * sizes[1]))
+    out = torch.empty((spec.n_words,) + batch, dtype=torch.int32, device=dev)
+    if _mont_mul_fn is None:
+        _mont_mul_fn = _build.load()["field"].dpt_mont_mul
+    args = (spec.index, out.data_ptr(), a.data_ptr(), wa, ga[0], ga[1],
+            b.data_ptr(), wb, gb[0], gb[1], sizes[0], sizes[1])
+    if dev.index == torch.cuda.current_device():
+        rc = _mont_mul_fn(*args, _stream(a))
+    else:
+        with torch.cuda.device(dev):
+            rc = _mont_mul_fn(*args, _stream(a))
     _build.check(rc, "mont_mul")
     _build.LAUNCHES["mont_mul"] += 1
     return out
@@ -245,12 +307,12 @@ def mont_mul_cuda(spec, a, b):
 
 def mont_mul(spec, a, b):
     """Montgomery product a*b*R^-1 mod p, inputs/outputs reduced (< p);
-    batch shapes broadcast. CUDA tensors launch kernel 1, CPU tensors run
-    the plain version."""
-    a, b = torch.broadcast_tensors(a, b)
+    batch shapes broadcast. CUDA tensors launch kernel 1 on the operands as
+    they are (strided or broadcast, never copied), CPU tensors run the
+    plain version."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mont_mul_ref(spec, a, b)
-    return mont_mul_cuda(spec, a.contiguous(), b.contiguous())
+    return mont_mul_cuda(spec, a, b)
 
 
 def to_mont(spec, a):

@@ -188,7 +188,7 @@ def msm_digits_cuda(v, inf, c, signed, shifted):
     nb = 1 << (c - 1) if signed else 1 << c
     ops = torch.empty((B, W, n), dtype=torch.int32, device=v.device)
     keys = torch.empty_like(ops)
-    flags = inf.to(torch.uint8)
+    flags = inf.contiguous().view(torch.uint8)   # same bytes, no kernel
     lib = _build.load()["msm"]
     with torch.cuda.device(v.device):
         rc = lib.dpt_msm_digits(ops.data_ptr(), keys.data_ptr(),

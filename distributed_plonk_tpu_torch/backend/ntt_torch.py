@@ -10,11 +10,17 @@ oracle and to ntt_jax in natural order:
   coset:    forward of v_j g^j / inverse followed by out_j g^{-j}
 
 All at the Montgomery boundary (handles in, handles out), with a batch axis:
-(8, B, n) -> (8, B, n). Kernel 2 (csrc/ntt.cu) runs one launch per
-decimation-in-frequency stage plus one bit-reversal gather, the coset
-pre-scale fused into the first stage and the inverse post-scale into the
-last; `ntt_ref` is its plain version, stage for stage.
+(8, B, n) -> (8, B, n). Kernel 2 (csrc/ntt.cu) runs ceil(log2 n / R)
+passes of up to R radix-2 stages each in shared memory (R = MAX_LOG_ROWS):
+a Cooley-Tukey split of n into digits n_1 ... n_P, the column DFTs of one
+digit per pass, a per-pass twiddle table between passes, natural order
+out of the last pass's stores. The coset pre-scale rides the first pass,
+the inverse post-scale the last. `NttPlan` holds each pass's geometry and
+tables; `ntt_ref`, the plain version, runs the same passes with the same
+tables and index maps.
 """
+
+import ctypes
 
 import torch
 
@@ -24,6 +30,9 @@ from . import _build
 from . import field_torch as F
 from .field_torch import FR
 from .limbs import ints_to_words, to_tensor
+
+MAX_LOG_ROWS = 8    # radix-2 stages per pass: 2^8 rows x 32 B = 8 KB a column
+TILE_LOG_COLS = 2   # a block's tile: 4 neighbouring columns
 
 
 def _powers(base, count, start=1):
@@ -40,46 +49,160 @@ def _mont_table(values, device):
                                    FR_WORDS), device)
 
 
-def _bitrev(n):
-    log_n = n.bit_length() - 1
-    return [int(format(i, "0%db" % log_n)[::-1], 2) if log_n else 0
-            for i in range(n)]
+def _bitrev(k, bits):
+    return int(format(k, "0%db" % bits)[::-1], 2)
+
+
+def split_digits(log_n, max_log_rows=MAX_LOG_ROWS):
+    """log2 of the digit sizes n_1 .. n_P, the fewest passes of at most
+    max_log_rows stages, larger digits first (2^13 -> [7, 6])."""
+    passes = -(-log_n // max_log_rows)
+    base, extra = divmod(log_n, passes)
+    return [base + 1] * extra + [base] * (passes - extra)
+
+
+class NttPass:
+    """One pass of kernel 2: the column DFTs of one index digit over tiles
+    of neighbouring columns, where each tile's elements come from and go
+    to (NttPass in csrc/ntt.cu, field for field), and the pass's tables:
+    stage twiddles, the twiddle table before the next pass (all but the
+    last pass) and the natural offsets of the last pass's middle index."""
+
+    ORDER = ("log_rows", "log_cols", "mids", "tiles_per_mid", "tiles", "n",
+             "word_stride", "in_mid", "in_tile", "in_col", "in_row",
+             "out_mid", "out_tile", "out_col", "out_row", "tw_row",
+             "tw_tile", "tw_words", "stage_words")
+
+    def __init__(self, n, digits, p, w, device):
+        self.n = n
+        self.log_rows = digits[p]
+        rows = 1 << self.log_rows
+        self.last = p == len(digits) - 1
+        sub = n >> sum(digits[:p])                  # N_p, this sub-DFT
+        w_rows = pow(w, n >> self.log_rows, R_MOD)  # root of order n_p
+        # stage st's twiddles w_rows^(k 2^st), k < 2^(log_rows - st - 1)
+        self.stage_table = _mont_table(
+            [pow(w_rows, k << st, R_MOD) for st in range(self.log_rows)
+             for k in range(rows >> (st + 1))], device)
+        self.stage_words = rows - 1
+        self.tw_table = self.lv_table = None
+        self.tw_row = self.tw_tile = self.tw_words = 0
+        if not self.last:
+            cols = sub >> self.log_rows                 # S
+            self.log_cols = min(TILE_LOG_COLS, cols.bit_length() - 1)
+            self.mids = n // sub
+            self.tiles_per_mid = cols >> self.log_cols
+            self.in_mid, self.in_tile = sub, 1 << self.log_cols
+            self.in_col, self.in_row = 1, cols
+            self.out_mid, self.out_tile = self.in_mid, self.in_tile
+            self.out_col, self.out_row = self.in_col, self.in_row
+            # output (k, s) times w_sub^(k s), at table index k * S + s
+            w_sub = pow(w, n // sub, R_MOD)
+            self.tw_row, self.tw_tile, self.tw_words = (
+                cols, 1 << self.log_cols, sub)
+            self.tw_table = _mont_table(
+                [pow(w_sub, k * c, R_MOD) for k in range(rows)
+                 for c in range(cols)], device)
+        else:
+            # the columns are the sub-transforms; a tile takes neighbouring
+            # values of the first digit k_1 (neighbours in natural order)
+            first = digits[0] if len(digits) > 1 else 0
+            self.log_cols = min(TILE_LOG_COLS, first)
+            self.mids = n >> (first + self.log_rows)     # digits 2 .. P-1
+            self.tiles_per_mid = (1 << first) >> self.log_cols
+            self.in_mid, self.in_row = rows, 1
+            self.in_col = n >> first
+            self.in_tile = self.in_col << self.log_cols
+            self.out_mid, self.out_tile = 0, 1 << self.log_cols
+            self.out_col, self.out_row = 1, n >> self.log_rows
+            self.lv_table = torch.tensor(
+                [self._natural(v, digits[1:-1]) << first
+                 for v in range(self.mids)], dtype=torch.int64,
+                device=device)
+
+    @staticmethod
+    def _natural(v, mid_digits):
+        """Middle index v holds k_2 .. k_{P-1} high digit first (the order
+        the passes stored them in); in natural order k_2 is the low digit:
+        k_2 + n_2 (k_3 + n_3 (...))."""
+        ks = []
+        for d in reversed(mid_digits):       # k_{P-1} first
+            ks.append(v & ((1 << d) - 1))
+            v >>= d
+        nat = 0
+        for k, d in zip(ks, reversed(mid_digits)):
+            nat = (nat << d) | k
+        return nat
+
+    def geometry(self, batch):
+        """The 19 integers dpt_ntt_pass reads, for a batch of B rows."""
+        per_batch = {"tiles": batch * self.mids * self.tiles_per_mid,
+                     "word_stride": batch * self.n}
+        return [per_batch[k] if k in per_batch else getattr(self, k)
+                for k in self.ORDER]
+
+    def index_maps(self, device):
+        """(in, out, twiddle) element indices of every (mid, tile, column,
+        row or output k), shaped (mids, tiles, cols, rows): the kernel's
+        address arithmetic, written out for the plain version."""
+        def ar(m, axis):
+            shape = [1, 1, 1, 1]
+            shape[axis] = m
+            return torch.arange(m, dtype=torch.int64,
+                                device=device).reshape(shape)
+
+        mid, t = ar(self.mids, 0), ar(self.tiles_per_mid, 1)
+        c, r = ar(1 << self.log_cols, 2), ar(1 << self.log_rows, 3)
+        src = (mid * self.in_mid + t * self.in_tile + c * self.in_col
+               + r * self.in_row)
+        base = (self.lv_table.to(device).reshape(-1, 1, 1, 1)
+                if self.lv_table is not None else mid * self.out_mid)
+        dst = base + t * self.out_tile + c * self.out_col + r * self.out_row
+        tw = (r * self.tw_row + t * self.tw_tile + c
+              if self.tw_table is not None else None)
+        return src, dst, tw
 
 
 class NttPlan:
-    """Twiddle, coset and post-scale tables for one domain size, on one
-    device (None: the card), built once."""
+    """Pass geometry and tables for one domain size, on one device (None:
+    the card), built once: the passes for the forward and for the inverse
+    root; the coset pre-scale g^i; the inverse post-scales 1/n and
+    g^-i / n, in natural order."""
 
-    def __init__(self, n, device=None):
+    def __init__(self, n, device=None, max_log_rows=MAX_LOG_ROWS):
         assert n >= 2 and n & (n - 1) == 0, n
         self.n = n
         self.log_n = n.bit_length() - 1
         self.device = F.resolve_device(device, "NttPlan")
+        self.digits = split_digits(self.log_n, max_log_rows)
         w = fr_root_of_unity(n)
-        self.perm_list = _bitrev(n)
-        self.perm = torch.tensor(self.perm_list, dtype=torch.int64,
-                                 device=self.device)
-        # stage s reads tw[k << s]: w^0 .. w^(n/2 - 1)
-        self.tw_fwd = _mont_table(_powers(w, n // 2), self.device)
-        self.tw_inv = _mont_table(_powers(fr_inv(w), n // 2), self.device)
+        self.passes = {
+            inverse: [NttPass(n, self.digits, p, root, self.device)
+                      for p in range(len(self.digits))]
+            for inverse, root in ((False, w), (True, fr_inv(w)))}
         g = FR_GENERATOR
         n_inv = fr_inv(n % R_MOD)
         self.coset_tab = _mont_table(_powers(g, n), self.device)
-        # inverse post-scales, laid out in the last stage's bit-reversed
-        # storage order: entry i scales natural index bitrev(i)
-        inv_coset = _powers(fr_inv(g), n, start=n_inv)
-        self.post_coset = _mont_table([inv_coset[j] for j in self.perm_list],
+        self.post_coset = _mont_table(_powers(fr_inv(g), n, start=n_inv),
                                       self.device)
         self.post_plain = _mont_table([n_inv] * n, self.device)
+        self._maps = {}
 
     def tables(self, inverse, coset):
-        """(twiddles, pre-scale or None, post-scale or None)."""
-        tw = self.tw_inv if inverse else self.tw_fwd
+        """(passes, pre-scale or None, post-scale or None)."""
         pre = self.coset_tab if (coset and not inverse) else None
         post = None
         if inverse:
             post = self.post_coset if coset else self.post_plain
-        return tw, pre, post
+        return self.passes[inverse], pre, post
+
+    def index_maps(self, inverse, p):
+        """Pass p's index maps (NttPass.index_maps), built once."""
+        key = (inverse, p)
+        if key not in self._maps:
+            self._maps[key] = self.passes[inverse][p].index_maps(
+                self.device)
+        return self._maps[key]
 
     def kernel(self, inverse=False, coset=False):
         """(8, n) -> (8, n) Montgomery-boundary transform."""
@@ -96,68 +219,96 @@ class NttPlan:
 _PLANS = {}
 
 
-def get_plan(n, device=None):
+def get_plan(n, device=None, max_log_rows=MAX_LOG_ROWS):
     """The cached NttPlan of size n on device (None: the card)."""
     device = F.resolve_device(device, "get_plan")
-    key = (n, str(device))
+    key = (n, str(device), max_log_rows)
     if key not in _PLANS:
-        _PLANS[key] = NttPlan(n, device)
+        _PLANS[key] = NttPlan(n, device, max_log_rows)
     return _PLANS[key]
 
 
+def _column_dft(ps, x):
+    """Radix-2 DIF along the last axis (the rows of each column), with the
+    pass's stage twiddles; output k lands at row bitrev(k), as in shared
+    memory."""
+    rows = 1 << ps.log_rows
+    shape = x.shape
+    off = 0
+    for st in range(ps.log_rows):
+        half = rows >> (st + 1)
+        xs = x.reshape(shape[:-1] + (rows // (2 * half), 2, half))
+        u, v = xs[..., 0, :], xs[..., 1, :]
+        d = F.sub(FR, u, v)
+        u = F.add(FR, u, v)
+        tw = ps.stage_table[:, off:off + half]
+        v = F.mont_mul_ref(FR, d, tw.reshape((FR_WORDS,)
+                                             + (1,) * (d.dim() - 2)
+                                             + (half,)))
+        x = torch.stack([u, v], dim=-2).reshape(shape)
+        off += half
+    return x
+
+
 def ntt_ref(plan, v, inverse=False, coset=False):
-    """Plain torch version of kernel 2: the same DIF stages, fused scales
-    and final bit-reversal gather, on (8, B, n) Montgomery words."""
-    n, log_n = plan.n, plan.log_n
-    tw_tab, pre, post = plan.tables(inverse, coset)
-    mul = F.mont_mul_ref
-    L, B = v.shape[0], v.shape[1]
+    """Plain torch version of kernel 2: the same passes, tables and index
+    maps, on (8, B, n) Montgomery words."""
+    passes, pre, post = plan.tables(inverse, coset)
+    L, B, n = v.shape
     x = v
-    for s in range(log_n):
-        half = n >> (s + 1)
-        xs = x.reshape(L, B, n // (2 * half), 2, half)
-        u, w = xs[:, :, :, 0], xs[:, :, :, 1]
-        if s == 0 and pre is not None:
-            pv = pre.reshape(L, 1, 1, 2, half)
-            u, w = mul(FR, u, pv[:, :, :, 0]), mul(FR, w, pv[:, :, :, 1])
-        t = F.sub(FR, u, w)
-        u = F.add(FR, u, w)
-        tw = tw_tab[:, ::1 << s][:, :half].reshape(L, 1, 1, half)
-        w = mul(FR, t, tw)
-        if s == log_n - 1 and post is not None:
-            qv = post.reshape(L, 1, n // 2, 2, 1)
-            u, w = mul(FR, u, qv[:, :, :, 0]), mul(FR, w, qv[:, :, :, 1])
-        x = torch.stack([u, w], dim=3).reshape(L, B, n)
-    return x[:, :, plan.perm]
+    for p, ps in enumerate(passes):
+        src, dst, tw = plan.index_maps(inverse, p)
+        t = x[:, :, src]                          # (8, B, mids, T, C, rows)
+        if p == 0 and pre is not None:
+            t = F.mont_mul_ref(FR, t, pre[:, src][:, None])
+        t = _column_dft(ps, t)
+        rows = 1 << ps.log_rows
+        perm = [_bitrev(k, ps.log_rows) for k in range(rows)]
+        t = t[..., perm]                          # output k at position k
+        if ps.tw_table is not None:
+            t = F.mont_mul_ref(FR, t, ps.tw_table[:, tw][:, None])
+        if ps.last and post is not None:
+            t = F.mont_mul_ref(FR, t, post[:, dst][:, None])
+        out = torch.empty_like(x)
+        out[:, :, dst] = t
+        x = out
+    return x
 
 
 def ntt_cuda(plan, v, inverse=False, coset=False):
-    """Kernel 2 launches on a contiguous (8, B, n) int32 CUDA tensor."""
+    """Kernel 2 launches, one per pass, on a contiguous (8, B, n) int32
+    CUDA tensor."""
     F._check_words(FR, v, "ntt")
     if v.dim() != 3 or v.shape[2] != plan.n:
         raise ValueError("ntt: expected (8, B, %d), got %s"
                          % (plan.n, tuple(v.shape)))
     if v.device != plan.device or v.device.type != "cuda":
         raise ValueError("ntt: tensor and plan must lie on one CUDA device")
-    tw, pre, post = plan.tables(inverse, coset)
+    passes, pre, post = plan.tables(inverse, coset)
     B = v.shape[1]
-    x = v.clone()
-    lib = _build.load()["ntt"]
+    out = torch.empty_like(v)
+    # a middle pass works in place; the first reads v, the last writes out
+    scratch = torch.empty_like(v) if len(passes) > 1 else None
+    fn = _build.load()["ntt"].dpt_ntt_pass
     stream = F._stream(v)
+    src = v
     with torch.cuda.device(v.device):
-        for s in range(plan.log_n):
-            p0 = pre.data_ptr() if (s == 0 and pre is not None) else None
-            p1 = (post.data_ptr()
-                  if (s == plan.log_n - 1 and post is not None) else None)
-            rc = lib.dpt_ntt_stage(x.data_ptr(), tw.data_ptr(), p0, p1,
-                                   plan.log_n, s, B, stream)
-            _build.check(rc, "ntt stage %d" % s)
+        for p, ps in enumerate(passes):
+            dst = out if ps.last else scratch
+            geo = (ctypes.c_longlong * 19)(*ps.geometry(B))
+            rc = fn(geo, dst.data_ptr(), src.data_ptr(),
+                    ps.stage_table.data_ptr(),
+                    ps.tw_table.data_ptr() if ps.tw_table is not None
+                    else None,
+                    pre.data_ptr() if (p == 0 and pre is not None) else None,
+                    post.data_ptr() if (ps.last and post is not None)
+                    else None,
+                    ps.lv_table.data_ptr() if ps.lv_table is not None
+                    else None, stream)
+            _build.check(rc, "ntt pass %d" % p)
             _build.LAUNCHES["ntt"] += 1
-        out = torch.empty_like(x)
-        rc = lib.dpt_ntt_bitrev(out.data_ptr(), x.data_ptr(), plan.log_n, B,
-                                stream)
-    _build.check(rc, "ntt bit-reversal")
-    _build.LAUNCHES["ntt"] += 1
+            src = dst
+    _build.CALLS["ntt"] += 1
     return out
 
 

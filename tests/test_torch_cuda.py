@@ -56,14 +56,62 @@ def test_mont_mul_kernel_matches_plain(field):
                        F.mont_mul_ref(spec, a, b))
 
 
-@pytest.mark.parametrize("inverse,coset", MODES)
-def test_ntt_kernel_matches_plain(inverse, coset):
+def _words(spec, shape, seed, dev):
+    count = int(np.prod(shape))
+    vals = _values(spec.mod, max(count, 3), seed)[-count:]
+    return TL.to_tensor(TL.ints_to_words(vals, spec.n_words),
+                        dev).reshape((spec.n_words,) + tuple(shape))
+
+
+@pytest.mark.parametrize("lanes", [1, 4099])
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_mont_mul_kernel_strided_and_broadcast(field, lanes):
+    """Broadcast scalars, slices x[:, i] of a stacked tensor and two lane
+    axes, read through their strides, against the plain version."""
     dev = _card()
-    n, batch = 1 << 10, 3
+    spec = F.FR if field == "fr" else F.FQ
+    stacked = _words(spec, (13, lanes), 7, dev)
+    cases = [(_words(spec, (1,), 8, dev), _words(spec, (lanes,), 9, dev)),
+             (stacked[:, 3], stacked[:, 11]),
+             (stacked[:, 5], _words(spec, (lanes,), 10, dev)),
+             (stacked[:, 2:6], _words(spec, (4, 1), 11, dev)),
+             (_words(spec, (1, 1), 12, dev), stacked)]
+    for a, b in cases:
+        assert torch.equal(F.mont_mul_cuda(spec, a, b),
+                           F.mont_mul_ref(spec, a, b))
+
+
+def test_mont_mul_broadcast_is_one_launch_and_no_copy():
+    """A broadcast (8, 1) operand against (8, 330): torch.profiler sees
+    exactly one kernel, kernel 1's, and no copy."""
+    dev = _card()
+    a = _words(F.FR, (330,), 13, dev)
+    z = _words(F.FR, (1,), 14, dev)
+    F.mont_mul(F.FR, a, z)
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        F.mont_mul(F.FR, a, z)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    assert [(e.key.split("(")[0], e.count) for e in device] == [
+        ("void mont_mul_kernel<Fr>", 1)], [(e.key, e.count) for e in device]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 25])
+@pytest.mark.parametrize("n", [2, 32, 512, 1 << 13, 1 << 16])
+def test_ntt_kernel_matches_plain(n, batch):
+    dev = _card()
     plan = N.get_plan(n, dev)
-    v = TL.lift(_values(R_MOD, n * batch, 3), dev).reshape(8, batch, n)
-    assert torch.equal(N.ntt_cuda(plan, v, inverse, coset),
-                       N.ntt_ref(plan, v, inverse, coset))
+    v = TL.lift(_values(R_MOD, max(n * batch, 3), 3 + n)[:n * batch],
+                dev).reshape(8, batch, n)
+    for inverse, coset in MODES:
+        assert torch.equal(N.ntt_cuda(plan, v, inverse, coset),
+                           N.ntt_ref(plan, v, inverse, coset)), (
+            n, batch, inverse, coset)
 
 
 def _key(n, seed, dev):
