@@ -60,11 +60,12 @@ build_seconds = {}  # library name -> seconds until its nvcc finished
 
 # Launch counters, one plain integer per kernel entry: each wrapper adds one
 # where it launches its kernel (the NTT counts every pass it launches;
-# proj_add counts its full and mixed launches alike; bucket_sums counts one
-# per call, which launches its chunk and tree kernels). CALLS counts the
-# entry calls of the NTT, which launches one kernel per pass.
+# proj_add counts the full add and proj_add_mixed the mixed add of the same
+# kernel; bucket_sums counts one per call, which launches its chunk and
+# tree kernels). CALLS counts the entry calls of the NTT, which launches
+# one kernel per pass.
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
-            "msm_tail": 0, "proj_add": 0}
+            "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0}
 CALLS = {"ntt": 0}
 
 

@@ -118,7 +118,7 @@ def _add_cuda(p, q):
             q[0].data_ptr(), q[1].data_ptr(), z2,
             x1.numel() // FQ_WORDS, F._stream(x1))
     _build.check(rc, "proj_add")
-    _build.LAUNCHES["proj_add"] += 1
+    _build.LAUNCHES["proj_add" if z2 is not None else "proj_add_mixed"] += 1
     return out
 
 
@@ -174,6 +174,15 @@ def batch_to_affine(p, jacobian=True):
     ay = F.mont_mul(FQ, py, zy)
     zero = torch.zeros_like(ax)
     return F.select(inf, zero, ax), F.select(inf, zero, ay), inf
+
+
+def affine_to_host(ax, ay, inf):
+    """batch_to_affine's output -> list[(x, y) | None] of canonical host
+    ints (one transfer per coordinate)."""
+    xs, ys = (words_to_ints(to_numpy(c)) for c in (ax, ay))
+    flags = inf.to("cpu").tolist()
+    return [None if f else (x * _MONT_R_INV % Q_MOD, y * _MONT_R_INV % Q_MOD)
+            for x, y, f in zip(xs, ys, flags)]
 
 
 def proj_to_affine(p):

@@ -48,20 +48,40 @@ def to_numpy(t):
     return t.detach().to("cpu").contiguous().numpy().view(np.uint32)
 
 
-def from_jax_limbs(arr, device):
-    """JAX (2K, *batch) uint32 16-bit limbs -> port (K, *batch) int32 words."""
-    a = np.asarray(arr, dtype=np.uint32)
+def _join16(a):
+    """(2K, *batch) uint32 16-bit limbs -> (K, *batch) uint32 words."""
+    a = np.asarray(a, dtype=np.uint32)
     assert a.shape[0] % 2 == 0, a.shape
-    return to_tensor(a[0::2] | (a[1::2] << np.uint32(16)), device)
+    return a[0::2] | (a[1::2] << np.uint32(16))
 
 
-def to_jax_limbs(t):
-    """Port (K, *batch) int32 words -> JAX (2K, *batch) uint32 16-bit limbs."""
-    w = to_numpy(t)
+def _split16(w):
+    """(K, *batch) uint32 words -> (2K, *batch) uint32 16-bit limbs."""
     out = np.empty((2 * w.shape[0],) + w.shape[1:], dtype=np.uint32)
     out[0::2] = w & np.uint32(0xFFFF)
     out[1::2] = w >> np.uint32(16)
     return out
+
+
+def from_jax_limbs(arr, device):
+    """JAX (2K, *batch) uint32 16-bit limbs -> port (K, *batch) int32 words."""
+    return to_tensor(_join16(arr), device)
+
+
+def to_jax_limbs(t):
+    """Port (K, *batch) int32 words -> JAX (2K, *batch) uint32 16-bit limbs."""
+    return _split16(to_numpy(t))
+
+
+def ints_to_limbs16(xs, n_words=FR_WORDS):
+    """Ints -> (2 * n_words, len(xs)) uint32 16-bit limbs (the JAX
+    package's limbs.ints_to_limbs layout)."""
+    return _split16(ints_to_words(xs, n_words))
+
+
+def limbs16_to_ints(arr):
+    """(2K, n) uint32 16-bit limbs -> n ints."""
+    return words_to_ints(_join16(arr))
 
 
 def lift(values, device):

@@ -485,17 +485,27 @@ class MsmContext:
         return torch.stack([torch.nn.functional.pad(
             h.to(self.device), (0, self.n - h.shape[1])) for h in hs], dim=1)
 
-    def msm_mont_limbs_many(self, hs):
-        """Commit (8, L <= n) Montgomery Fr coefficient handles -> affine
-        host points."""
-        out = []
+    def msm_mont_limbs_many_async(self, hs):
+        """Enqueue the commitments of (8, L <= n) Montgomery Fr coefficient
+        handles, BATCH_CHUNK handles per launch sequence; returns force()
+        -> affine host points, which does the transfers and the host
+        decode. Nothing here waits on the device."""
+        totals = []
         for i in range(0, len(hs), self.BATCH_CHUNK):
             v = self.stack(hs[i:i + self.BATCH_CHUNK])
             ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
             sums = bucket_sums(self.key, ops, keys, v.shape[1],
                                self.n_buckets)
-            out.extend(CT.proj_to_affine(msm_tail(*sums, self.signed)))
-        return out
+            totals.append(msm_tail(*sums, self.signed))
+
+        def force():
+            return [p for t in totals for p in CT.proj_to_affine(t)]
+        return force
+
+    def msm_mont_limbs_many(self, hs):
+        """Commit (8, L <= n) Montgomery Fr coefficient handles -> affine
+        host points."""
+        return self.msm_mont_limbs_many_async(hs)()
 
     def msm_many(self, scalar_lists):
         """B MSMs over host int scalar lists."""

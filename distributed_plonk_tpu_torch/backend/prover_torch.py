@@ -147,6 +147,83 @@ def quotient_evals(selectors, sigmas, wires, z, pi, tabs, k, beta, gamma,
     return _add(_mm(tabs["zh_inv"], _add(gate, perm)), l1)
 
 
+# --- round 3, streamed: one fold per coset plane ----------------------------
+# The quotient formula reads each selector plane once (a gate term) and
+# each sigma plane once (an acc2 factor), so each folds into a running
+# accumulator right after its coset FFT and is dropped (prover_jax's step
+# programs). The port's (8, m) words already are the JAX "packed" layout,
+# so no step packs or unpacks. Selector order: circuit.py (Q_LC x4,
+# Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC).
+
+def gate_linear_step(gate, plane, w):
+    """gate += sel * w (the four Q_LC selectors)."""
+    return _add(gate, _mm(plane, w))
+
+
+def gate_mul2_step(gate, plane, wa, wb):
+    """gate += sel * (wa * wb) (the two Q_MUL selectors)."""
+    return _add(gate, _mm(plane, _mm(wa, wb)))
+
+
+def gate_pow5_step(gate, plane, w):
+    """gate += sel * w^5 (the four Q_HASH selectors)."""
+    return _add(gate, _mm(plane, _pow5(w)))
+
+
+def gate_out_step(gate, plane, w):
+    """gate -= sel * e (Q_O)."""
+    return _sub(gate, _mm(plane, w))
+
+
+def gate_const_step(gate, plane):
+    """gate += sel (Q_C)."""
+    return _add(gate, plane)
+
+
+def gate_ecc_step(gate, plane, w0, w1, w2, w3, w4):
+    """gate += sel * a*b*c*d*e (Q_ECC)."""
+    abcd = _mm(_mm(w0, w1), _mm(w2, w3))
+    return _add(gate, _mm(plane, _mm(abcd, w4)))
+
+
+# selector index -> (step, wire-plane operand indices), circuit.py order
+GATE_STEPS = (
+    [(gate_linear_step, (i,)) for i in range(4)]                    # Q_LC
+    + [(gate_mul2_step, (0, 1)), (gate_mul2_step, (2, 3))]          # Q_MUL
+    + [(gate_pow5_step, (i,)) for i in range(4)]                    # Q_HASH
+    + [(gate_out_step, (4,)),                                       # Q_O
+       (gate_const_step, ()),                                       # Q_C
+       (gate_ecc_step, (0, 1, 2, 3, 4))]                            # Q_ECC
+)
+
+
+def sigma_step(acc2, plane, w, beta, gamma):
+    """acc2 *= (w + gamma + beta * sigma): one step per sigma plane. acc2
+    starts as the rolled z plane (z_next), so after the five steps it
+    equals quotient_evals' acc2 product."""
+    return _mm(acc2, _add(_add(w, gamma), _mm(plane, beta)))
+
+
+def quotient_combine_slice(wires, z, gate, acc2, tabs, k, beta, gamma,
+                           alpha, alpha_sq_div_n, j0, chunk):
+    """The final combine on lanes [j0, j0 + chunk): acc1 from the resident
+    wires and the ep table, then zh_inv * (gate + alpha * (acc1 - acc2))
+    + l1. acc2 already includes the z_next factor."""
+    def cut(a):
+        return a[:, j0:j0 + chunk]
+
+    zs = cut(z)
+    ep = cut(tabs["ep"])
+    acc1 = zs
+    for j in range(5):
+        t = _add(cut(wires[j]), gamma)
+        acc1 = _mm(acc1, _add(t, _mm(_mm(k[:, j], ep), beta)))
+    perm = _mm(alpha, _sub(acc1, cut(acc2)))
+    l1 = _mm(_mm(alpha_sq_div_n, _sub(zs, _one_like(zs))),
+             cut(tabs["shifted_inv"]))
+    return _add(_mm(cut(tabs["zh_inv"]), _add(cut(gate), perm)), l1)
+
+
 # --- polynomial utilities ---------------------------------------------------
 
 def _sum_axis1(v):

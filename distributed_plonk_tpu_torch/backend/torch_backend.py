@@ -1,5 +1,5 @@
 """Single-device PyTorch backend: the prover's poly-handle protocol on one
-CUDA card (the port of backend/jax_backend.py's synchronous method set).
+CUDA card (the port of backend/jax_backend.py).
 
 Poly handles are (8, L) int32 Montgomery Fr word tensors that stay on the
 device across all five rounds: NTTs (kernel 2), commitments (digit
@@ -7,9 +7,20 @@ extraction on device, buckets in kernel 3, the tail in kernel 4), and the
 round math (prover_torch, products in kernel 1). Host transfers during a
 prove are the witness upload, commitment results and transcript scalars.
 
+Beside the synchronous method set, the prover picks up optional hooks
+with getattr: the streamed round 3 (`quotient_streamed`,
+`release_circuit_tables`) and the async commitments and evaluations
+(`commit_many_async`, `eval_many_async`). Set a hook to None on an
+instance to run the prover's path without it. The pipelined prover
+launches from a worker thread, so the caches are filled under a lock;
+every launch goes to the calling thread's current CUDA stream (the
+default stream on a fresh thread), so device work runs in enqueue order.
+
 `TorchBackend()` runs on "cuda" and raises without a card; pass
 device="cpu" to run every kernel's plain torch version instead (the tests).
 """
+
+import threading
 
 import torch
 
@@ -19,7 +30,20 @@ from . import field_torch as F
 from . import limbs
 from . import ntt_torch
 from . import prover_torch as PT
+from .field_torch import FR
 from .msm_torch import MsmContext
+
+
+class _DevicePending:
+    """Dispatched-but-unforced device result (commit_many_async /
+    eval_many_async): the launches are enqueued; force() does the transfer
+    and the host decode. The pipelined prover forces only at the owning
+    member's host-finalize."""
+
+    __slots__ = ("force",)
+
+    def __init__(self, force):
+        self.force = force
 
 
 class TorchBackend:
@@ -27,6 +51,14 @@ class TorchBackend:
 
     # polynomials per NTT launch (the batch axis of kernel 2)
     NTT_BATCH = 32
+    # the streamed round 3: at most this many quotient-domain elements per
+    # coset-FFT launch (4 planes at m = 2^21, the NTT_BATCH cap at 2^16),
+    # and the lanes of one slice of the final combine
+    STREAM_ELEMS = 1 << 23
+    QUOT_SLICE = 1 << 20
+    # below this n the witness/permutation tables stay cached across
+    # proves; above it round 3 takes their memory back
+    RELEASE_TABLES_MIN = 1 << 19
 
     def __init__(self, device=None):
         self.device = F.resolve_device(device, "TorchBackend")
@@ -34,10 +66,16 @@ class TorchBackend:
         self._pk_polys = {}      # id(pk) -> (pk, selectors, sigmas)
         self._circuit_tabs = {}  # id(circuit) -> (circuit, tables)
         self._domain_tabs = {}   # (m, n) -> quotient-domain tables
+        self._cache_lock = threading.Lock()
+        # host-boundary transfers: lifts (uploads), lowers (handle and
+        # evaluation downloads; commitments are counted by neither)
+        self.lifts = 0
+        self.lowers = 0
 
     # --- handles ------------------------------------------------------------
 
     def lift(self, values):
+        self.lifts += 1
         return limbs.lift(values, self.device)
 
     def lift_many(self, value_lists):
@@ -48,24 +86,47 @@ class TorchBackend:
         return [h[:, i * n:(i + 1) * n] for i in range(len(value_lists))]
 
     def lower(self, h):
+        self.lowers += 1
         return limbs.lower(h)
+
+    def _cached(self, cache, key, build):
+        """cache[key], built on a miss outside the lock: a concurrent hit
+        never waits on a build, and a lost race costs one duplicate
+        build."""
+        with self._cache_lock:
+            hit = cache.get(key)
+        if hit is None:
+            built = build()
+            with self._cache_lock:
+                hit = cache.setdefault(key, built)
+        return hit
+
+    # checkpoint dump/load (checkpoint.py): CANONICAL (16, L) uint32 16-bit
+    # limb arrays, exactly what JaxBackend.dump_h writes, so a snapshot
+    # resumes on either package
+    def dump_h(self, h):
+        self.lowers += 1
+        return limbs.to_jax_limbs(F.from_mont(FR, h))
+
+    def load_h(self, arr):
+        self.lifts += 1
+        return F.to_mont(FR, limbs.from_jax_limbs(arr, self.device))
 
     def wire_values(self, circuit):
         tabs = self._circuit_tables(circuit)
         return [tabs["wires"][:, i] for i in range(NUM_WIRE_TYPES)]
 
     def pk_polys(self, pk):
-        hit = self._pk_polys.get(id(pk))
-        if hit is None:
-            hit = (pk, [self.lift(s) for s in pk.selectors],
-                   [self.lift(s) for s in pk.sigmas])
-            self._pk_polys[id(pk)] = hit
+        hit = self._cached(self._pk_polys, id(pk), lambda: (
+            pk, [self.lift(s) for s in pk.selectors],
+            [self.lift(s) for s in pk.sigmas]))
         return hit[1], hit[2]
 
     def register_pk_polys(self, pk, sel_h, sig_h):
         """Seed the pk-poly cache with the handles preprocess computed on
         device, so the prover never re-lifts them through the host."""
-        self._pk_polys[id(pk)] = (pk, list(sel_h), list(sig_h))
+        with self._cache_lock:
+            self._pk_polys[id(pk)] = (pk, list(sel_h), list(sig_h))
 
     # --- NTTs ---------------------------------------------------------------
 
@@ -73,13 +134,20 @@ class TorchBackend:
         return torch.nn.functional.pad(h, (0, size - h.shape[-1])) \
             if h.shape[-1] < size else h
 
-    def _ntt_many(self, domain, hs, inverse, coset):
+    def _ntt_batches(self, domain, hs, inverse, coset, width):
+        """Yield (8, B, size) NTT results covering hs in order, B <= width:
+        _ntt_many collects them, the streamed round 3 folds each batch as
+        it comes so no batch outlives its consumption."""
         plan = ntt_torch.get_plan(domain.size, self.device)
-        out = []
-        for i in range(0, len(hs), self.NTT_BATCH):
+        for i in range(0, len(hs), width):
             batch = torch.stack([self._pad(h, domain.size)
-                                 for h in hs[i:i + self.NTT_BATCH]], dim=1)
-            res = ntt_torch.ntt(plan, batch, inverse, coset)
+                                 for h in hs[i:i + width]], dim=1)
+            yield ntt_torch.ntt(plan, batch, inverse, coset)
+
+    def _ntt_many(self, domain, hs, inverse, coset):
+        out = []
+        for res in self._ntt_batches(domain, hs, inverse, coset,
+                                     self.NTT_BATCH):
             out.extend(res[:, j] for j in range(res.shape[1]))
         return out
 
@@ -95,16 +163,89 @@ class TorchBackend:
     def coset_ifft_h(self, domain, h):
         return self._ntt_many(domain, [h], True, True)[0]
 
+    # --- streamed round 3 ----------------------------------------------------
+    # The single-device memory strategy for the quotient round (reference
+    # src/dispatcher2.rs:382-507): each selector plane folds into the gate
+    # accumulator and each sigma plane into acc2 right after its coset FFT
+    # and is dropped, so about 10 planes stay resident (5 wires, z, gate,
+    # acc2 and one launch's batch) instead of 25; the final combine runs
+    # in lane slices. These are the JAX package's unfused steps
+    # (jax_backend.py:519-544), value for value; no bit-reversal is
+    # deferred, since kernel 2 writes natural order, and no packing is
+    # needed, since (8, m) int32 words already are the JAX package's
+    # packed layout. The prover runs the coset iNTT after.
+
+    def _r3_accumulate(self, n, m, quot_domain, beta, gamma, sel_h, sigma_h,
+                       wire_polys, perm_poly, pi_coeffs):
+        """Base coset FFTs + gate/sigma plane folding -> (wires, z, gate,
+        acc2) (8, m) planes."""
+        base = self.coset_fft_many(
+            quot_domain, list(wire_polys) + [perm_poly, pi_coeffs])
+        w, z, gate = base[:5], base[5], base[6]  # gate starts as the pi plane
+        acc2 = torch.roll(z, -(m // n), dims=1)    # z_next
+        del base
+        width = max(1, min(self.NTT_BATCH, self.STREAM_ELEMS // m))
+        beta_c = limbs.lift_scalar(beta, self.device)
+        gamma_c = limbs.lift_scalar(gamma, self.device)
+        idx = 0
+        for res in self._ntt_batches(quot_domain, list(sel_h), False, True,
+                                     width):
+            for j in range(res.shape[1]):
+                step, operands = PT.GATE_STEPS[idx]
+                gate = step(gate, res[:, j], *[w[x] for x in operands])
+                idx += 1
+        idx = 0
+        for res in self._ntt_batches(quot_domain, list(sigma_h), False, True,
+                                     width):
+            for j in range(res.shape[1]):
+                acc2 = PT.sigma_step(acc2, res[:, j], w[idx], beta_c,
+                                     gamma_c)
+                idx += 1
+        return w, z, gate, acc2
+
+    def quotient_streamed(self, n, m, quot_domain, k, beta, gamma, alpha,
+                          alpha_sq_div_n, sel_h, sigma_h, wire_polys,
+                          perm_poly, pi_coeffs):
+        """Round 3 from coefficient handles: coset FFTs and quotient
+        evaluation in one streaming pass -> (8, m) quotient evaluations,
+        combined in slices of QUOT_SLICE lanes."""
+        tabs = self._domain_tables(m, n, quot_domain.group_gen)
+        w, z, gate, acc2 = self._r3_accumulate(
+            n, m, quot_domain, beta, gamma, sel_h, sigma_h, wire_polys,
+            perm_poly, pi_coeffs)
+        chunk = min(self.QUOT_SLICE, m)
+        assert m % chunk == 0
+        kc = self.lift(list(k)).reshape(FR_WORDS, len(k), 1)
+        sc = [limbs.lift_scalar(x, self.device)
+              for x in (beta, gamma, alpha, alpha_sq_div_n)]
+        outs = [PT.quotient_combine_slice(w, z, gate, acc2, tabs, kc, *sc,
+                                          j0, chunk)
+                for j0 in range(0, m, chunk)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    def release_circuit_tables(self, circuit):
+        """Free the witness/permutation tables (about 0.25 GB at n = 2^19)
+        when the circuit is large enough that round 3 needs the memory.
+        The prover calls this after round 2 (the tables' last reader);
+        above the threshold a later prove lifts them again."""
+        if len(circuit.wire_variables[0]) < self.RELEASE_TABLES_MIN:
+            return
+        with self._cache_lock:
+            self._circuit_tabs.pop(id(circuit), None)
+
     # --- commitments ----------------------------------------------------------
 
     def _ctx(self, ck):
-        hit = self._msm_ctxs.get(id(ck))
-        if hit is None:
-            hit = self._msm_ctxs[id(ck)] = (ck, MsmContext(ck, self.device))
-        return hit[1]
+        return self._cached(self._msm_ctxs, id(ck),
+                            lambda: (ck, MsmContext(ck, self.device)))[1]
 
     def commit_many_h(self, ck, hs):
         return self._ctx(ck).msm_mont_limbs_many(hs)
+
+    def commit_many_async(self, ck, hs):
+        """commit_many_h with the launches enqueued now and the transfer
+        and host decode at force()."""
+        return _DevicePending(self._ctx(ck).msm_mont_limbs_many_async(hs))
 
     # --- round math -----------------------------------------------------------
 
@@ -114,9 +255,10 @@ class TorchBackend:
     def _circuit_tables(self, circuit):
         """Witness, identity-permutation and sigma-mapped identity values as
         (8, w, n) tables, lifted once per circuit."""
-        hit = self._circuit_tabs.get(id(circuit))
-        if hit is not None:
-            return hit[1]
+        return self._cached(self._circuit_tabs, id(circuit), lambda: (
+            circuit, self._lift_circuit_tables(circuit)))[1]
+
+    def _lift_circuit_tables(self, circuit):
         n = len(circuit.wire_variables[0])
         w = NUM_WIRE_TYPES
         wires = [v for i in range(w) for v in circuit.wire_values(i)]
@@ -130,7 +272,6 @@ class TorchBackend:
         tabs = {k: self.lift(v).reshape(FR_WORDS, w, n)
                 for k, v in (("wires", wires), ("id", ids), ("sig", sig))}
         tabs["n"] = n
-        self._circuit_tabs[id(circuit)] = (circuit, tabs)
         return tabs
 
     def perm_product(self, circuit, beta, gamma, n):
@@ -142,11 +283,8 @@ class TorchBackend:
             limbs.lift_scalar(gamma, self.device, 3))
 
     def _domain_tables(self, m, n, group_gen):
-        key = (m, n)
-        if key not in self._domain_tabs:
-            self._domain_tabs[key] = PT.domain_tables(
-                m, n, FR_GENERATOR, group_gen, self.device)
-        return self._domain_tabs[key]
+        return self._cached(self._domain_tabs, (m, n), lambda: (
+            PT.domain_tables(m, n, FR_GENERATOR, group_gen, self.device)))
 
     def quotient(self, n, m, quot_domain, k, beta, gamma, alpha,
                  alpha_sq_div_n, selectors_coset, sigmas_coset, wires_coset,
@@ -170,14 +308,23 @@ class TorchBackend:
         h = self._pad(h, count * size)
         return [h[:, i:i + size] for i in range(0, count * size, size)]
 
-    def eval_many_h(self, pairs):
-        """[(handle, point)] -> evaluations, in one batched device call."""
+    def eval_many_async(self, pairs):
+        """[(handle, point)] -> pending evaluations: the batched evaluation
+        is enqueued now, the transfer and decode run at force()."""
         L = max(h.shape[1] for h, _ in pairs)
         polys = torch.stack([self._pad(h, L) for h, _ in pairs], dim=1)
         zs = self.lift([p for _, p in pairs]).reshape(FR_WORDS, len(pairs),
                                                       1)
         out = PT.poly_eval_many(polys, zs)              # (8, B) canonical
-        return limbs.words_to_ints(limbs.to_numpy(out))
+
+        def force():
+            self.lowers += 1
+            return limbs.words_to_ints(limbs.to_numpy(out))
+        return _DevicePending(force)
+
+    def eval_many_h(self, pairs):
+        """[(handle, point)] -> evaluations, in one batched device call."""
+        return self.eval_many_async(pairs).force()
 
     def lin_comb_h(self, polys, coeffs):
         L = max(p.shape[1] for p in polys)

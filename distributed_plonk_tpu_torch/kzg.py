@@ -8,8 +8,14 @@ and the commit-key layout the dispatcher pads to a multiple of 32
 
 import random
 
+import torch
+
 from .constants import R_MOD
 from . import curve as C
+from .backend import curve_torch as CT
+from .backend import field_torch as F
+from .backend.fixed_base_torch import g1_batch_mul
+from .backend.msm_torch import DeviceCommitKey
 from .backend.torch_backend import TorchBackend
 from .circuit import NUM_WIRE_TYPES, NUM_SELECTORS
 
@@ -95,6 +101,53 @@ def universal_setup(max_degree, rng=None, tau=None):
     return UniversalSrs(powers_of_g1, C.G2_GEN, tau_g2)
 
 
+class DeviceSrs:
+    """SRS whose G1 powers live on a device as Jacobian Montgomery word
+    tensors ((12, N),)*3: produced by the fixed-base walk, consumed by
+    DeviceCommitKey / MsmContext without visiting the host."""
+
+    def __init__(self, jac_powers, count, g2, tau_g2):
+        self.jac_powers = jac_powers
+        self.count = count
+        self.g2 = g2
+        self.tau_g2 = tau_g2
+
+    @property
+    def device(self):
+        return self.jac_powers[0].device
+
+    def powers_affine(self):
+        """Host affine list (test/oracle boundary: one batch inversion on
+        the device, then one transfer per coordinate)."""
+        return CT.affine_to_host(*CT.batch_to_affine(self.jac_powers))
+
+
+def universal_setup_device(max_degree, rng=None, tau=None, device=None):
+    """Trusted setup with the [tau^i]G1 walk run as one device batch
+    (backend/fixed_base_torch.py) instead of max_degree serial host scalar
+    muls: the set-up's scale blocker at reference size (2^18 + 3 powers,
+    reference workload src/dispatcher2.rs:1219-1221). device None: the
+    card."""
+    device = F.resolve_device(device, "universal_setup_device")
+    tau, powers = _tau_powers(max_degree, rng, tau)
+    jac = g1_batch_mul(powers, device)
+    tau_g2 = C.g2_mul(C.G2_GEN, tau)
+    return DeviceSrs(jac, max_degree + 1, C.G2_GEN, tau_g2)
+
+
+def device_commit_key(srs, srs_size, device):
+    """A DeviceSrs's first srs_size powers padded with identity columns
+    (Z = 0) to a multiple of 32, the host key's length (pad_commit_key),
+    so both keys give the MSM the same point count. Padding never changes
+    a commitment."""
+    assert srs.count >= srs_size, "SRS too small for this circuit"
+    pad = (-srs_size) % 32
+    px, py, pz = (torch.nn.functional.pad(p[:, :srs_size].to(device),
+                                          (0, pad))
+                  for p in srs.jac_powers)
+    return DeviceCommitKey(px, py, pz)
+
+
 def pad_commit_key(powers, srs_size):
     """Host G1 powers -> commit key: slice to srs_size, pad to a multiple
     of 32 with the identity, as the dispatcher does (reference
@@ -109,7 +162,8 @@ def pad_commit_key(powers, srs_size):
 
 def preprocess(srs, circuit, backend=None):
     """Build (pk, vk) for a finalized circuit on a device backend (None:
-    TorchBackend() on the card).
+    TorchBackend() on the card), from a host UniversalSrs or a DeviceSrs
+    (whose commit key stays on the device, never normalized on the host).
 
     Mirrors PlonkKzgSnark::preprocess (reference src/dispatcher2.rs:1280):
     selector/sigma polynomials are iFFTs of their domain evaluations;
@@ -124,7 +178,10 @@ def preprocess(srs, circuit, backend=None):
     n = circuit.n
     domain = circuit.eval_domain
     srs_size = n + 3  # degree n+2 polys (blinded z) must be committable
-    ck = pad_commit_key(srs.powers_of_g1, srs_size)
+    if isinstance(srs, DeviceSrs):
+        ck = device_commit_key(srs, srs_size, backend.device)
+    else:
+        ck = pad_commit_key(srs.powers_of_g1, srs_size)
 
     cols = list(circuit.selectors) + list(circuit.sigma_values())
     assert len(circuit.selectors) == NUM_SELECTORS

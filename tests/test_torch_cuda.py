@@ -169,3 +169,51 @@ def test_add_kernels_match_plain():
     # plain build on the CPU
     assert torch.equal(M.shifted_key(px, py, inf, 7, 3).cpu(),
                        M.shifted_key(px.cpu(), py.cpu(), inf.cpu(), 7, 3))
+
+
+def test_fixed_base_walk_matches_plain():
+    """The fixed-base walk of the device SRS (32 mixed adds of kernel 4,
+    then kernel 1) on the card equals the same walk over the plain
+    versions on the CPU, coordinate for coordinate; scalar 0 stays the
+    identity through the table's infinity flag."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend.fixed_base_torch import \
+        FixedBaseContext
+    scalars = [0, 1, R_MOD - 1, 2] + _values(R_MOD, 60, 15)
+    got = FixedBaseContext(C.G1_GEN, dev).batch_mul(scalars)
+    want = FixedBaseContext(C.G1_GEN, "cpu").batch_mul(scalars)
+    assert _equal(tuple(c.cpu() for c in got), want)
+    assert int(got[2][:, 0].abs().sum()) == 0
+
+
+def test_streamed_round3_matches_one_shot_at_2p16():
+    """quotient_streamed (coset FFTs folded plane by plane, combine in
+    slices) equals the one-shot quotient on the card at the 2^13
+    workload's quotient domain, m = 2^16."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.circuit import coset_representatives
+    from distributed_plonk_tpu_torch.poly import Domain
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    n = 1 << 13
+    dom = Domain(6 * (n + 1) + 1)
+    assert dom.size == 1 << 16
+    be = TorchBackend(dev)
+    vals = iter(_values(R_MOD, 25 * (n + 3), 16))
+
+    def poly(size):
+        return be.lift([next(vals) for _ in range(size)])
+
+    sel = [poly(n) for _ in range(13)]
+    sig = [poly(n) for _ in range(5)]
+    wires = [poly(n + 2) for _ in range(5)]
+    z, pi = poly(n + 3), poly(n)
+    beta, gamma, alpha, asdn = (next(vals) for _ in range(4))
+    head = (n, dom.size, dom, coset_representatives(5), beta, gamma, alpha,
+            asdn, sel, sig)
+    batch = be.coset_fft_many(dom, sel + sig + wires + [z, pi])
+    evals = be.quotient(*head[:8], batch[:13], batch[13:18], batch[18:23],
+                        batch[23], batch[24])
+    be.QUOT_SLICE = 1 << 14
+    be.STREAM_ELEMS = 3 << 16
+    assert torch.equal(be.quotient_streamed(*head, wires, z, pi), evals)

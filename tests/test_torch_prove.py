@@ -3,8 +3,13 @@ prove of the test circuit with the golden recipe (tau = 0xDEADBEEF, prove
 rng random.Random(1), verify rng random.Random(2)) must give the bytes of
 tests/fixtures/proof_small.hex AND of the JAX package's proof, and
 verify. Every kernel runs its plain torch version here (CPU tensors).
+
+`port_keys()` is the keys the other port test modules prove with: the
+test circuit preprocessed from the device SRS (same tau, so the same
+commit key and proof bytes), built once per process.
 """
 
+import functools
 import os
 import random
 
@@ -12,7 +17,7 @@ import pytest
 import torch
 
 from distributed_plonk_tpu import proof_io as JIO
-from distributed_plonk_tpu_torch import kzg, proof_io
+from distributed_plonk_tpu_torch import curve as C, kzg, proof_io
 from distributed_plonk_tpu_torch.circuit import PlonkCircuit
 from distributed_plonk_tpu_torch.prover import prove
 from distributed_plonk_tpu_torch.trace import Tracer
@@ -22,6 +27,8 @@ from distributed_plonk_tpu_torch.backend import field_torch as F
 from distributed_plonk_tpu_torch.backend import limbs as TL
 from distributed_plonk_tpu_torch.backend import msm_torch as M
 from distributed_plonk_tpu_torch.backend import ntt_torch as N
+from distributed_plonk_tpu_torch.backend.fixed_base_torch import \
+    FixedBaseContext
 from distributed_plonk_tpu_torch.backend.torch_backend import TorchBackend
 
 # the plain versions run many small ops: one intra-op thread per test
@@ -50,6 +57,24 @@ def _port_test_circuit():
     return ckt
 
 
+def golden():
+    with open(FIXTURE) as f:
+        return bytes.fromhex(f.read().strip())
+
+
+@functools.lru_cache(maxsize=1)
+def port_keys():
+    """(circuit, backend, pk, vk) of the test circuit, preprocessed on
+    TorchBackend(device="cpu") from universal_setup_device(n + 2,
+    tau=0xDEADBEEF): the commit key of the golden recipe."""
+    ckt = _port_test_circuit()
+    srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF,
+                                     device="cpu")
+    be = TorchBackend(device="cpu")
+    pk, vk = kzg.preprocess(srs, ckt, be)
+    return ckt, be, pk, vk
+
+
 def test_port_proof_matches_golden_and_jax_proof(proven):
     _, _, _, jax_proof = proven       # JAX prove(..., PythonBackend())
     ckt = _port_test_circuit()
@@ -59,8 +84,7 @@ def test_port_proof_matches_golden_and_jax_proof(proven):
     tr = Tracer()
     proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
     blob = proof_io.serialize_proof(proof)
-    with open(FIXTURE) as f:
-        assert blob == bytes.fromhex(f.read().strip())
+    assert blob == golden()
     assert blob == JIO.serialize_proof(jax_proof)
     assert verify(vk, ckt.public_input(), proof, rng=random.Random(2))
     assert set(tr.totals(0)) == {"round%d" % i for i in range(1, 6)}
@@ -82,6 +106,9 @@ ENTRY_POINTS = {
     "NttPlan": lambda dev: N.NttPlan(8, dev),
     "MsmContext": lambda dev: M.MsmContext([None, None], dev),
     "preprocess": lambda dev: kzg.preprocess(None, None),
+    "universal_setup_device": lambda dev: kzg.universal_setup_device(
+        1, tau=5, device=dev),
+    "FixedBaseContext": lambda dev: FixedBaseContext(C.G1_GEN, dev),
 }
 
 
