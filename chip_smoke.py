@@ -48,16 +48,36 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    n = 2^18, quotient domain 2^21): the device SRS of 2^18 + 3 powers,
    preprocess, a cold and a warm prove and one with the one-shot round 3
    (all three identical), verify, per-round spans and peak device memory.
-9. Device time: torch.profiler's CUDA kernel times for one launch of each
-   kernel at its parity shape, and for one more warm prove of the 2^13
-   and of the v2 workload (device busy time by kernel and the idle
+9. Fleet: the sharded 4-step FFT's stage panels (kernels 1 and 2 over
+   each FFT1 row panel and FFT2 column panel of a 4-worker plan) against
+   their plain versions in all four modes at 2^16 and 2^21, then four
+   port workers (runtime/worker.py, one process and CUDA context each on
+   this card) behind the port's Dispatcher: every worker reports backend
+   torch on CUDA; fft_dist of one 2^21 vector, coset forward and coset
+   inverse, equals the single-card ntt; a fleet MSM over v2's commit key
+   (2^18 + 3 powers) equals TorchBackend.commit_many_h; the v1 proof
+   through RemoteBackend with every NTT sharded and with whole NTTs
+   round-robin equals the fixture and verifies, with its per-round
+   seconds, the workers' span seconds, the requests each worker served
+   (every worker must serve MSM and EVAL in both proves, FFT1 and FFT2
+   in the sharded one, NTT in the other) and the kernel launches per
+   fleet prove. A worker that exits, an ERR reply from a worker (the
+   dispatcher raises it), or any recovery by the dispatcher (a
+   reconnect, an adopted range, a rerouted NTT or evaluation, a replan,
+   a quarantine), fails the phase.
+10. Device time: torch.profiler's CUDA kernel times for one launch of
+   each kernel at its parity shape, and for one more warm prove of the
+   2^13 and of the v2 workload (device busy time by kernel and the idle
    share; "not measured" if the profiler records no CUDA events); then
    each kernel's "ms", its device time: CUDA events around the replay of
-   a CUDA graph of its launches.
+   a CUDA graph of its launches, and the same for the stage panels of
+   phase 9 beside the single-card ntt of the whole vector.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
-have launched there. Phase 2 also holds kernel 4's mixed add at the
+have launched there; a fleet worker's counters are read over its HEALTH
+reply before and after each run, and every worker must have launched
+every kernel of the run's path. Phase 2 also holds kernel 4's mixed add at the
 fixed-base walk's width (2^18 + 3 lanes) against its plain version.
 
 Imports only the port, torch and the standard library. The last
@@ -417,6 +437,118 @@ def sync_counts(prove_once):
     return counter.per_round, sites
 
 
+class FleetCounters:
+    """The dispatcher's metrics registry (inc / gauge / observe): its
+    recovery counters (reconnects, breaker opens and re-admissions, range
+    adoptions, rerouted NTTs and evaluation chunks, FFT replans, degraded
+    FFTs, quarantines) must stay at zero, so that no worker fault is
+    routed around in silence. (A worker's ERR reply is not routed
+    around: the dispatcher raises it.)"""
+
+    RECOVERY = ("fleet_reconnects", "fleet_breaker_opens",
+                "fleet_readmissions", "fleet_range_adoptions",
+                "fleet_ntt_reroutes", "fleet_eval_reroutes",
+                "fleet_fft_replans", "fleet_fft_degraded",
+                "workers_quarantined", "integrity_failures")
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def inc(self, name, by=1):
+        self.counts[name] += by
+
+    def gauge(self, name, value):
+        pass
+
+    def observe(self, name, seconds):
+        pass
+
+    def check(self, label):
+        bad = {k: self.counts[k] for k in self.RECOVERY if self.counts[k]}
+        assert not bad, (label, bad)
+
+
+class Fleet:
+    """Port workers (`python -m distributed_plonk_tpu_torch.runtime.worker
+    i cfg`, on this card unless `args` asks otherwise) on free localhost
+    ports; every process is reaped by close()."""
+
+    def __init__(self, count, workdir, args=()):
+        import socket
+        from distributed_plonk_tpu_torch.runtime.netconfig import \
+            NetworkConfig
+        socks = [socket.socket() for _ in range(count)]
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        ports = [sk.getsockname()[1] for sk in socks]
+        for sk in socks:
+            sk.close()
+        self.cfg = NetworkConfig(["127.0.0.1:%d" % p for p in ports])
+        cfg_path = os.path.join(workdir, "network.json")
+        self.cfg.save(cfg_path)
+        self.logs = [os.path.join(workdir, "worker%d.log" % i)
+                     for i in range(count)]
+        self.procs = []
+        for i in range(count):
+            with open(self.logs[i], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "distributed_plonk_tpu_torch.runtime.worker", str(i),
+                     cfg_path, *args], cwd=HERE, stdout=log,
+                    stderr=subprocess.STDOUT))
+
+    def check_alive(self):
+        dead = [(i, p.returncode) for i, p in enumerate(self.procs)
+                if p.poll() is not None]
+        if dead:
+            for i, _ in dead:
+                with open(self.logs[i]) as f:
+                    print("worker %d log tail:\n%s" % (i, f.read()[-3000:]))
+            raise RuntimeError("fleet workers exited: %s" % dead)
+
+    def dispatcher(self, metrics, tracer=None, timeout_s=180):
+        """A Dispatcher once every worker answers a HEALTH probe (probes
+        dial fresh connections and count nothing in `metrics`)."""
+        from distributed_plonk_tpu_torch.runtime.dispatcher import Dispatcher
+        d = Dispatcher(self.cfg, metrics=metrics, tracer=tracer)
+        deadline = time.time() + timeout_s
+        while any(w.probe(timeout_ms=2000) is None for w in d.workers):
+            self.check_alive()
+            if time.time() > deadline:
+                raise RuntimeError("fleet workers did not answer HEALTH")
+            time.sleep(0.5)
+        d.ping()
+        return d
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def worker_launches(d):
+    """Each worker's kernel launch counters (its HEALTH snapshot)."""
+    snaps = d.health()
+    assert all(s is not None for s in snaps), snaps
+    return [s["launches"] for s in snaps]
+
+
+def launch_delta(before, after, label, names):
+    """Per-worker launches between two worker_launches() reads: every
+    worker must have launched every kernel in `names`. Returns the sum
+    over the workers."""
+    total = collections.Counter()
+    for i, (b, a) in enumerate(zip(before, after)):
+        delta = {k: a[k] - b[k] for k in a}
+        missing = [k for k in names if delta[k] == 0]
+        assert not missing, (label, i, missing, delta)
+        total.update(delta)
+    print("worker launches in %s (summed over %d workers): %s"
+          % (label, len(before), json.dumps(dict(total))))
+    return dict(total)
+
+
 def phase(name):
     print("== phase: %s" % name, flush=True)
     return time.perf_counter()
@@ -451,6 +583,13 @@ def main():
                                                           lift, to_tensor)
     from distributed_plonk_tpu_torch.backend.torch_backend import \
         TorchBackend
+    from distributed_plonk_tpu_torch.backend.limbs import lower
+    from distributed_plonk_tpu_torch.runtime import native, protocol
+    from distributed_plonk_tpu_torch.runtime.dispatcher import (
+        RemoteBackend, _split_rc)
+    from distributed_plonk_tpu_torch.runtime.torch_stages import \
+        StageKernels
+    from distributed_plonk_tpu_torch.runtime.worker import FftTask
 
     class Interrupted(Exception):
         pass
@@ -1148,7 +1287,194 @@ def main():
     del vk2, proof2
     done("v2", t0)
 
-    # --- 9. device time, after the counters were read and the proves timed:
+    # --- 9. fleet: four port workers on this card (each its own process
+    # and CUDA context, so the card is time-shared and the times measure
+    # the protocol, not a four-card fleet): the stage panels against their
+    # plain versions, the sharded FFT and the fleet MSM at v2 size against
+    # the single-card kernels, the v1 proof through the fleet
+    t0 = phase("fleet")
+    panel_runs = {}     # graph-timed in the last phase
+
+    def rand_words(*shape):
+        """Random canonical Fr words on the card (a top word below 2^30
+        keeps every value below the modulus), made on the card."""
+        v = torch.randint(-2**31, 2**31, (8,) + shape, dtype=torch.int32,
+                          device=dev)
+        v[7] &= 0x3FFFFFFF
+        return v
+
+    for size in (1 << 16, 1 << 21):
+        r, c = _split_rc(size)
+        rows = [c * j // 4 for j in range(5)]
+        cols = [(r * j // 4, r * (j + 1) // 4) for j in range(4)]
+        st = StageKernels(dev)
+        for inverse, coset in ((False, False), (True, False), (False, True),
+                               (True, True)):
+            mode = "%s%s" % ("inverse" if inverse else "forward",
+                             " coset" if coset else "")
+            t = time.perf_counter()
+            calls = []
+            for me in range(4):
+                task = FftTask(inverse, coset, size, r, c, rows[me],
+                               rows[me + 1], cols, me)
+                pre, mid = st._stage1_tables(task, task.rs, task.re)
+                post = st._stage2_tables(task, task.cs, task.ce)
+                calls.append((rand_words(task.re - task.rs, r), r,
+                              {"pre": pre, "mid": mid}))
+                calls.append((rand_words(task.ce - task.cs, c), c,
+                              {"post": post}))
+            torch.cuda.synchronize()
+            tables_s = time.perf_counter() - t
+            _build.reset_launches()
+            outs = [st.panel_words(v, n_, inverse, **tb)
+                    for v, n_, tb in calls]
+            read_launches("the %s stage panels at 2^%d" % (
+                mode, size.bit_length() - 1), ("mont_mul", "ntt"))
+            for (v, n_, tb), got in zip(calls, outs):
+                want = st.panel_words(v, n_, inverse, plain=True, **tb)
+                assert max_abs_err(got, want) == 0, (size, mode, n_)
+            print("stage panels 2^%d %s: 4 row panels (8, %d, %d) and 4 "
+                  "column panels (8, %d, %d) exact against their plain "
+                  "versions; tables %.3f s" % (
+                      size.bit_length() - 1, mode, rows[1], r, cols[0][1], c,
+                      tables_s), flush=True)
+            tag = "2^%d %s" % (size.bit_length() - 1, mode)
+            v1, n1, tb1 = calls[2]
+            v2_, n2_, tb2 = calls[3]
+            panel_runs["stage-1 panel " + tag] = (
+                lambda v=v1, n_=n1, tb=tb1, inv=inverse, st=st:
+                st.panel_words(v, n_, inv, **tb), 5)
+            panel_runs["stage-2 panel " + tag] = (
+                lambda v=v2_, n_=n2_, tb=tb2, inv=inverse, st=st:
+                st.panel_words(v, n_, inv, **tb), 5)
+            panel_runs["8 panels, one sharded FFT " + tag] = (
+                lambda calls=calls, inv=inverse, st=st: [
+                    st.panel_words(v, n_, inv, **tb)
+                    for v, n_, tb in calls], 3)
+            whole = rand_words(1, size)
+            panel_runs["single-card ntt (8, 1, 2^%d) %s" % (
+                size.bit_length() - 1, mode)] = (
+                lambda whole=whole, plan=N.get_plan(size, dev), inv=inverse,
+                co=coset: N.ntt_cuda(plan, whole, inv, co), 5)
+            del outs, calls
+
+    workdir = tempfile.mkdtemp(prefix="dpt_fleet_")
+    native.build_native()     # before the workers, which load it
+    t = time.perf_counter()
+    fleet = Fleet(4, workdir)
+    try:
+        counters = FleetCounters()
+        d = fleet.dispatcher(counters)
+        print("4 port workers up in %.3f s" % (time.perf_counter() - t))
+        for i, snap in enumerate(d.health()):
+            assert snap["backend"] == "torch" and \
+                snap["device"].startswith("cuda"), (i, snap)
+        print("HEALTH: every worker reports backend torch on %s"
+              % sorted({s["device"] for s in d.health()}))
+
+        # (b) the sharded 4-step FFT of one 2^21 vector, coset forward and
+        # coset inverse, against the single-card K2 on the same values
+        size = 1 << 21
+        plan = N.get_plan(size, dev)
+        values = [rng.randrange(R_MOD) for _ in range(size)]
+        h = lift(values, dev).reshape(8, 1, size)
+        for inverse in (False, True):
+            before = worker_launches(d)
+            t = time.perf_counter()
+            got = d.fft_dist(values, inverse=inverse, coset=True)
+            secs = time.perf_counter() - t
+            launch_delta(before, worker_launches(d),
+                         "fft_dist 2^21 coset inverse=%d" % inverse,
+                         ("mont_mul", "ntt"))
+            want = lower(N.ntt(plan, h, inverse, True)[:, 0])
+            assert got == want, ("fft_dist 2^21", inverse)
+            print("fft_dist 2^21 coset inverse=%d over 4 workers: %.3f s, "
+                  "equal to the single-card ntt" % (inverse, secs),
+                  flush=True)
+        del values, h, got, want
+        counters.check("fft_dist")
+
+        # (c) a fleet MSM over v2's commit key (2^18 + 3 powers padded to
+        # a multiple of 32), against the single-card commitment
+        rb = RemoteBackend(d)
+        t = time.perf_counter()
+        host_ck = rb._host_bases(pk2.ck)
+        print("v2 commit key to host affine points (%d): %.3f s"
+              % (len(host_ck), time.perf_counter() - t))
+        scalars = [rng.randrange(R_MOD) for _ in range(V2_POWERS)]
+        before = worker_launches(d)
+        t = time.perf_counter()
+        fleet_point = rb.commit(pk2.ck, scalars)
+        msm_s = time.perf_counter() - t
+        launch_delta(before, worker_launches(d), "the fleet msm",
+                     ("msm_digits", "bucket_sums", "msm_tail", "proj_add"))
+        t = time.perf_counter()
+        single = be2.commit_many_h(pk2.ck, [lift(scalars, dev)])[0]
+        single_s = time.perf_counter() - t
+        assert fleet_point == single, "fleet msm"
+        print("fleet msm over %d bases (4 ranges, keys built by the "
+              "workers): %.3f s; equal to TorchBackend.commit_many_h "
+              "(%.3f s warm)" % (len(host_ck), msm_s, single_s), flush=True)
+        del host_ck, scalars, rb
+        counters.check("fleet msm")
+
+        # (d) the v1 proof through the fleet: every NTT sharded
+        # (dist_fft_min = n), then whole NTTs round-robin
+        for label, fft_min in (("sharded", n), ("unsharded", None)):
+            dtr = Tracer(proc="dispatcher")
+            dd = fleet.dispatcher(counters, tracer=dtr)
+            be_f = RemoteBackend(dd, dist_fft_min=fft_min)
+            stats0 = dd.stats()
+            before = worker_launches(dd)
+            tr = Tracer()
+            t = time.perf_counter()
+            proof = prove(random.Random(1), ckt, pk, be_f, tracer=tr)
+            secs = time.perf_counter() - t
+            fleet_launches = launch_delta(
+                before, worker_launches(dd), "the %s fleet prove" % label,
+                PATH_KERNELS + ("proj_add",))
+            blob = proof_io.serialize_proof(proof)
+            assert blob == golden, "%s fleet proof bytes" % label
+            assert verify(vk, ckt.public_input(), proof,
+                          rng=random.Random(2))
+            served = [{protocol.tag_name(int(k)): v - s0.get(k, 0)
+                       for k, v in s1.items() if v - s0.get(k, 0)}
+                      for s0, s1 in zip(stats0, dd.stats())]
+            # every worker took its share of each offloaded kind of work
+            must = ("MSM", "EVAL") + (("FFT1", "FFT2") if fft_min
+                                      else ("NTT",))
+            idle = [(i, t) for i, sv in enumerate(served) for t in must
+                    if not sv.get(t)]
+            assert not idle, ("%s fleet prove: workers served none of"
+                              % label, idle, served)
+            merged = dd.collect_trace()
+            spans = collections.defaultdict(float)
+            for ev in merged["events"]:
+                if ev["proc"].startswith("worker"):
+                    spans[ev["span"]] += ev["dur_s"]
+            print("%s fleet prove: %.3f s, equal to the fixture, verifies"
+                  % (label, secs))
+            print("  rounds: " + json.dumps(
+                {k: round(v, 4) for k, v in tr.totals(0).items()}))
+            print("  worker span seconds (summed over workers): "
+                  + json.dumps({k: round(v, 3)
+                                for k, v in sorted(spans.items())}))
+            print("  requests served per worker: " + json.dumps(served))
+            kernels_per = {k: v for k, v in fleet_launches.items() if v}
+            print("  kernel launches per %s fleet prove: %s"
+                  % (label, json.dumps(kernels_per)), flush=True)
+            dd.pool.shutdown()
+            for w in dd.workers:
+                w.close()
+        counters.check("fleet proves")
+        fleet.check_alive()
+        d.shutdown()
+    finally:
+        fleet.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    done("fleet", t0)
+
+    # --- 10. device time, after the counters were read and the proves timed:
     # torch.profiler, then CUDA graphs (captured last, so that no capture
     # precedes a timing of calls from Python)
     t0 = phase("profile")
@@ -1160,6 +1486,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     graph_kernels(runs, kernels)
+    graph_kernels(panel_runs, {})
     nbytes, imads = bounds["ntt x25"]
     print("ntt coset fwd (8, 25, 65536): bound %.4f ms (%s)"
           % (bound_ms(nbytes, imads), bound_by(nbytes, imads)))

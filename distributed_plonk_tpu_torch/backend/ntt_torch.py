@@ -21,6 +21,7 @@ tables and index maps.
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -217,15 +218,20 @@ class NttPlan:
 
 
 _PLANS = {}
+_PLANS_LOCK = threading.Lock()
 
 
 def get_plan(n, device=None, max_log_rows=MAX_LOG_ROWS):
-    """The cached NttPlan of size n on device (None: the card)."""
+    """The cached NttPlan of size n on device (None: the card). Safe under
+    concurrent first use (a fleet worker serves each connection on its own
+    thread): the plan is built once, under the lock."""
     device = F.resolve_device(device, "get_plan")
     key = (n, str(device), max_log_rows)
-    if key not in _PLANS:
-        _PLANS[key] = NttPlan(n, device, max_log_rows)
-    return _PLANS[key]
+    with _PLANS_LOCK:
+        plan = _PLANS.get(key)
+        if plan is None:
+            plan = _PLANS[key] = NttPlan(n, device, max_log_rows)
+    return plan
 
 
 def _column_dft(ps, x):

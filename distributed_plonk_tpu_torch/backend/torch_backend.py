@@ -16,6 +16,15 @@ launches from a worker thread, so the caches are filled under a lock;
 every launch goes to the calling thread's current CUDA stream (the
 default stream on a fresh thread), so device work runs in enqueue order.
 
+The int-list methods (`fft`, `ifft`, `coset_fft`, `coset_ifft`, `msm`,
+`eval_h`) are what a fleet worker (runtime/worker.py) serves: host ints in,
+host ints out, the same kernels in between.
+
+Every device cache (MSM contexts, pk polynomials, circuit tables,
+quotient-domain tables) holds at most `_CACHE_CAP` entries and evicts the
+oldest first, as the JAX backend does: a long-lived process (a fleet
+worker, a service) proves many shapes through one backend.
+
 `TorchBackend()` runs on "cuda" and raises without a card; pass
 device="cpu" to run every kernel's plain torch version instead (the tests).
 """
@@ -49,6 +58,8 @@ class _DevicePending:
 class TorchBackend:
     """Backend over the port's kernels on one device."""
 
+    name = "torch"
+
     # polynomials per NTT launch (the batch axis of kernel 2)
     NTT_BATCH = 32
     # the streamed round 3: at most this many quotient-domain elements per
@@ -59,6 +70,8 @@ class TorchBackend:
     # below this n the witness/permutation tables stay cached across
     # proves; above it round 3 takes their memory back
     RELEASE_TABLES_MIN = 1 << 19
+    # entries per device cache (jax_backend's _CACHE_CAP)
+    _CACHE_CAP = 4
 
     def __init__(self, device=None):
         self.device = F.resolve_device(device, "TorchBackend")
@@ -89,6 +102,13 @@ class TorchBackend:
         self.lowers += 1
         return limbs.lower(h)
 
+    def _cache_put(self, cache, key, value):
+        """cache[key] = value, the oldest entry evicted first when the cache
+        is full (self._cache_lock held)."""
+        if key not in cache and len(cache) >= self._CACHE_CAP:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+
     def _cached(self, cache, key, build):
         """cache[key], built on a miss outside the lock: a concurrent hit
         never waits on a build, and a lost race costs one duplicate
@@ -98,7 +118,10 @@ class TorchBackend:
         if hit is None:
             built = build()
             with self._cache_lock:
-                hit = cache.setdefault(key, built)
+                hit = cache.get(key)
+                if hit is None:
+                    self._cache_put(cache, key, built)
+                    hit = built
         return hit
 
     # checkpoint dump/load (checkpoint.py): CANONICAL (16, L) uint32 16-bit
@@ -126,7 +149,35 @@ class TorchBackend:
         """Seed the pk-poly cache with the handles preprocess computed on
         device, so the prover never re-lifts them through the host."""
         with self._cache_lock:
-            self._pk_polys[id(pk)] = (pk, list(sel_h), list(sig_h))
+            self._cache_put(self._pk_polys, id(pk),
+                            (pk, list(sel_h), list(sig_h)))
+
+    # --- int-list compute API (the fleet worker's surface) -------------------
+
+    def _run_ints(self, domain, values, inverse, coset):
+        plan = ntt_torch.get_plan(domain.size, self.device)
+        return plan.run_ints(values, inverse, coset)
+
+    def fft(self, domain, values):
+        return self._run_ints(domain, values, False, False)
+
+    def ifft(self, domain, values):
+        return self._run_ints(domain, values, True, False)
+
+    def coset_fft(self, domain, values):
+        return self._run_ints(domain, values, False, True)
+
+    def coset_ifft(self, domain, values):
+        return self._run_ints(domain, values, True, True)
+
+    def msm(self, bases, scalars):
+        """sum_j scalars[j] * bases[j] over a host list of affine bases
+        (scalars may be shorter: the missing ones are zero), through the
+        cached MsmContext of that base list."""
+        return self._ctx(bases).msm(scalars)
+
+    def eval_h(self, h, point):
+        return self.eval_many_h([(h, point)])[0]
 
     # --- NTTs ---------------------------------------------------------------
 

@@ -1,0 +1,579 @@
+"""Worker daemon: serves MSM, NTT and the sharded 4-step FFT over the
+native framed transport, with its kernels on the card.
+
+The port of the JAX package's runtime/worker.py, and the analog of the
+reference's worker binary (reference src/worker.rs:441-536): it holds its
+base sets across requests (State, worker.rs:42-59) and runs kernels per
+RPC. One thread per connection; the state is guarded by a lock, and the
+kernels run outside it, so concurrent connections overlap.
+
+Compute: a `TorchBackend` serves MSM (an `MsmContext` per base set, in the
+backend's bounded cache), NTT and EVAL through its int-list methods; a
+`torch_stages.StageKernels` runs each FFT1 frame and each FFT2 column
+panel as one batched panel transform (kernels 1 and 2). Both sit on the
+card unless `--device cpu` asks for the host, which runs the kernels'
+plain versions (the tests).
+
+The sharded FFT (the reference's signature protocol): FFT_INIT allocates a
+task (worker.rs:187-233), FFT1 runs the stage-1 rows (worker.rs:235-278 ->
+66-94), FFT2_PREPARE pushes each peer its column slices over direct
+worker<->worker connections (worker.rs:280-345 sender, 412-438 receiver),
+FFT2 runs the stage-2 columns and returns the result shard (worker.rs:
+347-381 -> 96-115), with the integrity plane's partial power sums
+piggybacked when the dispatcher sends a check point. Peer exchange frames
+arrive on the same port, told apart by tag.
+
+The wire protocol is the JAX package's (runtime/protocol.py), so the JAX
+package's dispatcher drives this worker too. Tags of planes the port has
+not ported (ROSTER, JOIN, LEAVE, STORE_FETCH, STORE_LIST, METRICS_FETCH,
+LOG_FETCH, PROFILE) answer ERR "<TAG> not ported".
+
+Run: python -m distributed_plonk_tpu_torch.runtime.worker <index>
+    <network.json> [--device cuda|cpu]
+"""
+
+import json
+import struct
+import sys
+import threading
+import time
+from collections import OrderedDict
+from contextlib import nullcontext
+
+import numpy as np
+import torch
+
+from . import native, protocol
+from .netconfig import NetworkConfig
+from .torch_stages import StageKernels
+from ..backend import _build
+from ..backend.torch_backend import TorchBackend
+from ..constants import R_MOD, FR_GENERATOR
+from ..fields import fr_inv, fr_root_of_unity
+from ..poly import Domain, poly_eval
+from ..trace import NULL_TRACER, Tracer
+
+# resident per-trace span buffers: the dispatcher fetches-and-forgets
+# them via TRACE_DUMP, but a dispatcher that dies mid-prove must not
+# leak its trace buffers forever — LRU cap, oldest trace dropped
+_TRACE_CAP = 32
+
+# wire tags of planes the port has not ported yet (ROADMAP Queue 1)
+NOT_PORTED = frozenset((protocol.ROSTER, protocol.JOIN, protocol.LEAVE,
+                        protocol.STORE_FETCH, protocol.STORE_LIST,
+                        protocol.METRICS_FETCH, protocol.LOG_FETCH,
+                        protocol.PROFILE))
+
+
+class FftTask:
+    """In-flight sharded FFT state (the reference's FftTask,
+    reference src/worker.rs:50-54): stage-1 results for our rows, stage-2
+    input columns filled in by peer exchanges.
+
+    The data plane is numpy limb panels end to end (exchange panels land
+    with one slice assignment); `created` supports age-based GC, fixing the
+    reference's task leak on dispatcher abort (worker.rs:378)."""
+
+    def __init__(self, inverse, coset, n, r, c, rs, re, col_ranges, me,
+                 keep_raw=False):
+        self.inverse = inverse
+        self.coset = coset
+        self.n, self.r, self.c = n, r, c
+        self.rs, self.re = rs, re          # our stage-1 rows (j2 indices)
+        self.col_ranges = col_ranges       # every worker's stage-2 range (k1)
+        self.cs, self.ce = col_ranges[me]
+        self.rows_mat = None               # (16, re - rs, r) staged rows
+        self.rows_filled = np.zeros(re - rs, dtype=bool)
+        # RAW stage-1 input panels as received (first_row -> limbs): the
+        # integrity plane's input-side partial is a power sum of what this
+        # worker actually holds. Kept only when FFT_INIT announced an
+        # armed integrity plane (keep_raw).
+        self.keep_raw = keep_raw
+        self.raw_panels = {}
+        # [16, local k1, j2] stage-2 input columns; fill_mask tracks the
+        # exchange per (column, row) cell — a REGION mask, not a counter,
+        # so a retried FFT2_PREPARE stays idempotent
+        self.cols = np.zeros((16, self.ce - self.cs, c), dtype=np.uint32)
+        self.fill_mask = np.zeros((self.ce - self.cs, c), dtype=bool)
+        self.cols_lock = threading.Lock()
+        self.created = time.monotonic()
+        # FFT2 caches its reply here instead of deleting the task, so a
+        # dispatcher retry gets the same bytes back; completed tasks are
+        # GC'd by age at the next FFT_INIT
+        self.result = None
+        self.done_at = None
+
+
+class WorkerState:
+    def __init__(self, backend, stages, config=None, me=0):
+        self.backend = backend
+        self.stages = stages
+        self.config = config
+        self.me = me
+        self.started = time.monotonic()
+        self.base_sets = {}  # set_id -> bases (a worker can adopt ranges)
+        self.lock = threading.Lock()
+        self.domains = {}
+        self.fft_tasks = {}
+        self.peers = {}
+        self.peer_lock = threading.Lock()
+        self.counters = {}
+        # trace_id -> Tracer holding this worker's spans for that trace
+        # (shipped back + forgotten on TRACE_DUMP; LRU-capped)
+        self.traces = OrderedDict()
+
+    def on_device(self):
+        """The device context a connection thread runs its kernels in."""
+        dev = self.backend.device
+        return torch.cuda.device(dev) if dev.type == "cuda" \
+            else nullcontext()
+
+    def domain(self, n):
+        if n not in self.domains:
+            self.domains[n] = Domain(n)
+        return self.domains[n]
+
+    def count(self, tag):
+        with self.lock:
+            self.counters[tag] = self.counters.get(tag, 0) + 1
+
+    def tracer_for(self, ctx):
+        """The per-trace Tracer an incoming traced frame records under
+        (created on first sight of the trace id, LRU past _TRACE_CAP)."""
+        tid = ctx.get("trace_id") if isinstance(ctx, dict) else None
+        if not tid:
+            return NULL_TRACER
+        with self.lock:
+            tr = self.traces.get(tid)
+            if tr is None:
+                tr = self.traces[tid] = Tracer(
+                    trace_id=tid, proc=f"worker/{self.me}")
+                while len(self.traces) > _TRACE_CAP:
+                    self.traces.popitem(last=False)
+            else:
+                self.traces.move_to_end(tid)
+            return tr
+
+    def pop_trace(self, trace_id):
+        with self.lock:
+            return self.traces.pop(trace_id, None)
+
+    def health(self):
+        """The HEALTH snapshot (cheap, lock-scoped: a probe must stay fast
+        even mid-FFT). `launches` is this process's kernel launch counters
+        (backend/_build.py), which a caller reads before and after a run."""
+        with self.lock:
+            return {
+                "uptime_s": round(time.monotonic() - self.started, 3),
+                "served": sum(self.counters.values()),
+                "fft_tasks": len(self.fft_tasks),
+                "base_sets": sorted(self.base_sets),
+                "backend": self.backend.name,
+                "device": str(self.backend.device),
+                # wall-clock sample: the dispatcher brackets the probe with
+                # its own clock to estimate this worker's offset
+                "now": time.time(),
+                "traces": len(self.traces),
+                "launches": dict(_build.LAUNCHES),
+            }
+
+    def peer(self, p):
+        """Lazy worker->worker connection (the reference opens peer
+        connections per exchange, worker.rs:297-338; here they are cached).
+        Includes the self-loop via TCP, as the reference does."""
+        with self.peer_lock:
+            if p not in self.peers:
+                host, port = self.config.workers[p]
+                conn = native.connect(host, port)
+                self.peers[p] = (conn, threading.Lock())
+            return self.peers[p]
+
+    def drop_peer(self, p):
+        """Forget a cached peer connection (it broke mid-exchange)."""
+        with self.peer_lock:
+            entry = self.peers.pop(p, None)
+        if entry is not None:
+            try:
+                entry[0].close()
+            except OSError:  # pragma: no cover - already dead
+                pass
+
+    def peer_call(self, p, tag, payload):
+        """One request/reply to peer p, retrying ONCE on a fresh
+        connection: a cached stream goes stale when the peer restarts, and
+        the exchange payload is idempotent at the receiver (region-mask
+        overwrite). Raises on the second failure."""
+        for attempt in (0, 1):
+            pconn, plock = self.peer(p)
+            with plock:
+                try:
+                    pconn.send(tag, payload)
+                    return pconn.recv()
+                except (ConnectionError, OSError):
+                    self.drop_peer(p)
+                    if attempt:
+                        raise
+
+
+# sum_j row[j] * base^j — exactly dense-poly Horner evaluation
+_horner = poly_eval
+
+
+def _fft2_partials(task, point):
+    """The integrity piggyback (runtime/integrity.py): (input-side,
+    output-side) partial power sums at the dispatcher's random point.
+    Input side walks the RAW stage-1 rows as received (flat index
+    j1*c + j2 -> row j2 Horner in base t^c, scaled t^j2); output side
+    walks the computed result panel (flat index k1 + r*k2 -> row k1
+    Horner in base t^r, scaled t^k1). Both come from the buffers the data
+    plane serves, so an SDC in either shows up in the partials exactly as
+    in the data. O(n/k) host muls."""
+    a = 0
+    tc = pow(point, task.c, R_MOD)
+    for first_row, panel in sorted(task.raw_panels.items()):
+        count, row_len = panel.shape[1], panel.shape[2]
+        ints = protocol.matrix_to_ints(panel.reshape(16, count * row_len))
+        tk = pow(point, first_row, R_MOD)
+        for off in range(count):
+            row = ints[off * row_len:(off + 1) * row_len]
+            a = (a + _horner(row, tc) * tk) % R_MOD
+            tk = tk * point % R_MOD
+    b = 0
+    vals = protocol.decode_scalars(task.result)
+    c = task.c
+    tr = pow(point, task.r, R_MOD)
+    tk = pow(point, task.cs, R_MOD)
+    for k1 in range(task.ce - task.cs):
+        b = (b + _horner(vals[k1 * c:(k1 + 1) * c], tr) * tk) % R_MOD
+        tk = tk * point % R_MOD
+    return a, b
+
+
+def _stage1_row(backend, domain_r, task, j2, row):
+    """Stage-1 oracle for one global row j2 (fft1_helper, reference
+    src/worker.rs:66-94), on the int-list API: optional forward-coset
+    pre-scale g^(j2 + c*j1), r-point (i)FFT, mid twiddle w^(+-j2*k1).
+    torch_stages.StageKernels computes whole panels of these."""
+    n, r, c = task.n, task.r, task.c
+    if task.coset and not task.inverse:
+        gc = pow(FR_GENERATOR, c, R_MOD)
+        t = pow(FR_GENERATOR, j2, R_MOD)
+        scaled = []
+        for v in row:
+            scaled.append(v * t % R_MOD)
+            t = t * gc % R_MOD
+        row = scaled
+    out = backend.ifft(domain_r, row) if task.inverse \
+        else backend.fft(domain_r, row)
+    w = fr_root_of_unity(n)
+    base = pow(fr_inv(w) if task.inverse else w, j2, R_MOD)
+    t = 1
+    tw = []
+    for v in out:
+        tw.append(v * t % R_MOD)
+        t = t * base % R_MOD
+    return tw
+
+
+def _stage2_row(backend, domain_c, task, k1, row):
+    """Stage-2 oracle for one global column k1 (fft2_helper, reference
+    src/worker.rs:96-115): c-point (i)FFT + inverse-coset post-scale
+    g^-(k1 + r*k2); the 1/n factor comes from the two stage iFFTs
+    (1/r * 1/c), as in the reference."""
+    out = backend.ifft(domain_c, row) if task.inverse \
+        else backend.fft(domain_c, row)
+    if task.inverse and task.coset:
+        g_inv = fr_inv(FR_GENERATOR)
+        step = pow(g_inv, task.r, R_MOD)
+        t = pow(g_inv, k1, R_MOD)
+        scaled = []
+        for v in out:
+            scaled.append(v * t % R_MOD)
+            t = t * step % R_MOD
+        return scaled
+    return out
+
+
+def handle(conn, state):
+    """Serve one connection until EOF/shutdown. Returns False to stop the
+    whole daemon."""
+    while True:
+        try:
+            tag, payload = conn.recv()
+        except ConnectionError:
+            return True
+        try:
+            # a TRACED frame carries the caller's {trace_id, parent_id};
+            # the request is served under a span in that trace's buffer
+            # (shipped back via TRACE_DUMP)
+            tag, ctx, payload = protocol.strip_context(tag, payload)
+            tracer = state.tracer_for(ctx) if ctx is not None \
+                else NULL_TRACER
+            parent = ctx.get("parent_id") if ctx else None
+            with tracer.span("serve/" + protocol.tag_name(tag).lower(),
+                             parent=parent), \
+                    state.on_device():
+                cont = _dispatch(conn, state, tag, payload, tracer=tracer)
+        except Exception as e:  # malformed payload / backend failure
+            try:
+                conn.send(protocol.ERR, repr(e).encode())
+            except ConnectionError:
+                return True
+            continue
+        if cont is False:
+            return False
+
+
+# abandoned FFT tasks (dispatcher died mid-protocol) are purged when older
+# than this; COMPLETED tasks (kept only so FFT2 retries can re-read their
+# reply) are purged much sooner; both checked on every FFT_INIT
+_FFT_TASK_TTL_S = 600.0
+_FFT_DONE_TTL_S = 60.0
+# hard cap on resident tasks: LRU eviction, completed tasks first (a retry
+# after eviction recomputes), then the oldest in-flight
+_FFT_TASK_CAP = 64
+
+
+def _evict_fft_tasks(tasks, cap, now):
+    """TTL purge + LRU cap for the task table (state.lock held). Keeps at
+    most `cap` - 1 entries so the task the caller is about to insert fits."""
+    stale = [tid for tid, t in tasks.items()
+             if (now - t.created > _FFT_TASK_TTL_S
+                 or (t.done_at is not None
+                     and now - t.done_at > _FFT_DONE_TTL_S))]
+    for tid in stale:
+        del tasks[tid]
+    room = max(cap - 1, 0)
+    if len(tasks) <= room:
+        return
+    done = sorted((tid for tid, t in tasks.items() if t.done_at is not None),
+                  key=lambda tid: tasks[tid].done_at)
+    live = sorted((tid for tid, t in tasks.items() if t.done_at is None),
+                  key=lambda tid: tasks[tid].created)
+    for tid in done + live:
+        if len(tasks) <= room:
+            break
+        del tasks[tid]
+
+
+def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
+    """Handle one request frame. Returns False to stop the daemon, anything
+    else to keep serving.
+
+    Locking: state.lock guards only STATE lookups/mutations (base sets,
+    domain/task tables); kernels run OUTSIDE it, so one worker overlaps
+    compute for concurrent connections."""
+    state.count(tag)
+    if tag == protocol.PING:
+        conn.send(protocol.OK)
+    elif tag == protocol.INIT_BASES:
+        set_id, bases = protocol.decode_init_bases(payload)
+        with state.lock:
+            state.base_sets[set_id] = bases
+        conn.send(protocol.OK)
+    elif tag == protocol.MSM:
+        set_id, scalars = protocol.decode_msm_request(payload)
+        with state.lock:
+            bases = state.base_sets.get(set_id)
+        if bases is None:
+            conn.send(protocol.ERR, b"no bases for set %d" % set_id)
+            return None
+        with tracer.span("msm"):
+            result = state.backend.msm(bases, scalars)
+        conn.send(protocol.OK, protocol.encode_point(result))
+    elif tag == protocol.NTT:
+        values, inverse, coset = protocol.decode_ntt_request(payload)
+        with state.lock:
+            domain = state.domain(len(values))
+        with tracer.span("ntt"):
+            if inverse and coset:
+                out = state.backend.coset_ifft(domain, values)
+            elif inverse:
+                out = state.backend.ifft(domain, values)
+            elif coset:
+                out = state.backend.coset_fft(domain, values)
+            else:
+                out = state.backend.fft(domain, values)
+        conn.send(protocol.OK,
+                  protocol.encode_scalar_matrix(protocol.ints_to_matrix(out)))
+    elif tag == protocol.FFT_INIT:
+        (task_id, inverse, coset, n, r, c, rs, re,
+         col_ranges, _epoch, keep_raw) = protocol.decode_fft_init(payload)
+        now = time.monotonic()
+        with state.lock:
+            _evict_fft_tasks(state.fft_tasks, _FFT_TASK_CAP, now)
+            state.fft_tasks[task_id] = FftTask(
+                inverse, coset, n, r, c, rs, re, col_ranges, state.me,
+                keep_raw=keep_raw)
+        conn.send(protocol.OK)
+    elif tag == protocol.FFT1:
+        task_id, first_row, panel = protocol.decode_fft1_matrix(payload)
+        with state.lock:
+            task = state.fft_tasks[task_id]
+        count = panel.shape[1]
+        if task.keep_raw:
+            # the FFT2 integrity piggyback's input-side partial is computed
+            # over exactly what we received
+            task.raw_panels[first_row] = panel
+        with tracer.span("fft1_rows"):
+            staged = state.stages.stage1_panel(task, first_row, panel)
+        lo = first_row - task.rs
+        with task.cols_lock:
+            if task.rows_mat is None:
+                task.rows_mat = np.zeros(
+                    (16, task.re - task.rs, task.r), dtype=np.uint32)
+            task.rows_mat[:, lo:lo + count, :] = staged
+            task.rows_filled[lo:lo + count] = True
+        conn.send(protocol.OK)
+    elif tag == protocol.FFT2_PREPARE:
+        (task_id,) = struct.unpack_from("<Q", payload, 0)
+        with state.lock:
+            task = state.fft_tasks[task_id]
+        # push every peer its column slice of our rows (the all-to-all,
+        # worker.rs:280-345); each send waits for the peer's ACK, so our OK
+        # to the dispatcher implies all our data has landed. Rows go out as
+        # ONE contiguous limb panel per peer.
+        if task.re > task.rs:
+            # loud failure if any row range never saw an FFT1 frame: the
+            # zero-initialized panel must not ship silently
+            assert task.rows_mat is not None and task.rows_filled.all(), \
+                f"fft2_prepare before stage 1 complete " \
+                f"({task.rows_filled.sum()}/{task.rows_filled.size})"
+            # re-inject our trace context into each peer frame so the
+            # receiving workers' exchange spans land in the SAME trace
+            with tracer.span("fft_exchange_push") as push_sid:
+                for p, (ps, pe) in enumerate(task.col_ranges):
+                    if pe == ps:
+                        continue
+                    panel = np.ascontiguousarray(task.rows_mat[:, :, ps:pe])
+                    xtag, xpayload = protocol.FFT_EXCHANGE, \
+                        protocol.encode_fft_exchange(
+                            task_id, ps, pe - ps, task.rs, panel)
+                    if push_sid is not None:
+                        xtag, xpayload = protocol.wrap_traced(
+                            xtag, xpayload, {"trace_id": tracer.trace_id,
+                                             "parent_id": push_sid})
+                    rtag, rpayload = state.peer_call(p, xtag, xpayload)
+                    if rtag != protocol.OK:
+                        raise RuntimeError(
+                            f"peer {p} exchange failed: {rpayload!r}")
+        conn.send(protocol.OK)
+    elif tag == protocol.FFT_EXCHANGE:
+        task_id, col_start, col_count, row_start, panel = \
+            protocol.decode_fft_exchange(payload)
+        with state.lock:
+            task = state.fft_tasks[task_id]
+        lo = col_start - task.cs
+        with task.cols_lock:
+            task.cols[:, lo:lo + col_count,
+                      row_start:row_start + panel.shape[1]] = \
+                panel.transpose(0, 2, 1)
+            task.fill_mask[lo:lo + col_count,
+                           row_start:row_start + panel.shape[1]] = True
+        conn.send(protocol.OK)
+    elif tag == protocol.FFT2:
+        task_id, check_point = protocol.decode_fft2_request(payload)
+        with state.lock:
+            task = state.fft_tasks[task_id]
+        if task.result is None:
+            assert task.fill_mask.all(), \
+                f"fft2 before exchange complete ({task.fill_mask.sum()}" \
+                f"/{task.fill_mask.size})"
+            task.result = b""
+            if task.ce > task.cs:
+                with tracer.span("fft2_cols"):
+                    staged = state.stages.stage2_panel(task, task.cols)
+                task.result = protocol.encode_scalar_matrix(
+                    staged.reshape(16, staged.shape[1] * staged.shape[2]))
+            task.done_at = time.monotonic()
+        if check_point is not None and task.result \
+                and (task.keep_raw or task.re <= task.rs):
+            # integrity piggyback: (input-side, output-side) partial power
+            # sums at the dispatcher's random point. A task whose FFT_INIT
+            # did not announce the plane answers plain.
+            a, b = _fft2_partials(task, check_point)
+            conn.send(protocol.OK,
+                      protocol.encode_fft2_partials(a, b, task.result))
+        else:
+            conn.send(protocol.OK, task.result)
+    elif tag == protocol.EVAL:
+        # distributed partial evaluation (round 4 of the fleet prove):
+        # sum_i c_i * point^i over the shipped coefficient chunk
+        point, chunk = protocol.decode_eval_request(payload)
+        with tracer.span("eval"):
+            val = state.backend.eval_h(state.backend.lift(chunk), point)
+        conn.send(protocol.OK, protocol.encode_scalar(val))
+    elif tag == protocol.STATS:
+        with state.lock:
+            snap = dict(state.counters)
+        conn.send(protocol.OK, json.dumps(snap).encode())
+    elif tag == protocol.HEALTH:
+        conn.send(protocol.OK, json.dumps(state.health()).encode())
+    elif tag == protocol.TRACE_DUMP:
+        # fetch-and-forget one trace's worker-side spans; an unknown id
+        # answers {}
+        req = protocol.decode_json(payload)
+        tr = state.pop_trace(req.get("trace_id"))
+        conn.send(protocol.OK,
+                  json.dumps(tr.dump() if tr is not None else {}).encode())
+    elif tag in NOT_PORTED:
+        conn.send(protocol.ERR,
+                  b"%s not ported" % protocol.tag_name(tag).encode())
+    elif tag == protocol.SHUTDOWN:
+        conn.send(protocol.OK)
+        return False
+    else:
+        conn.send(protocol.ERR, b"unknown tag")
+    return None
+
+
+def _run_server(listener, state, ready_event=None):
+    """Accept loop until a SHUTDOWN frame lands."""
+    if ready_event is not None:
+        ready_event.set()
+    stop = threading.Event()
+
+    def run_conn(conn):
+        if not handle(conn, state):
+            stop.set()
+        conn.close()
+
+    def accept_loop():
+        while True:
+            conn = listener.accept()
+            if conn.fd < 0:
+                return
+            threading.Thread(target=run_conn, args=(conn,),
+                             daemon=True).start()
+
+    threading.Thread(target=accept_loop, daemon=True).start()
+    stop.wait()  # SHUTDOWN flips this; daemon threads die with the process
+    listener.close()
+
+
+def serve(index, config, device=None, ready_event=None):
+    """Static-fleet daemon on `device` (None: the card, raising without
+    one; "cpu" runs the kernels' plain versions)."""
+    host, port = config.workers[index]
+    backend = TorchBackend(device)
+    stages = StageKernels(backend.device)
+    listener = native.Listener(host, port)
+    state = WorkerState(backend, stages, config=config, me=index)
+    _run_server(listener, state, ready_event=ready_event)
+
+
+def main(argv):
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        device = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if len(argv) != 2:
+        raise SystemExit("usage: python -m distributed_plonk_tpu_torch."
+                         "runtime.worker <index> <network.json> "
+                         "[--device cuda|cpu]")
+    serve(int(argv[0]), NetworkConfig.load(argv[1]), device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

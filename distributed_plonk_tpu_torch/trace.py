@@ -1,67 +1,163 @@
-"""Minimal span tracer for the prover: wall-clock seconds per named span.
+"""Span tracer: wall-clock seconds per named span, one timeline per proof.
 
 The prover opens one span per round (`round1` .. `round5`) and one per
-kernel batch inside it. `NULL_TRACER` records nothing; a `Tracer` keeps
-the durations, which chip_smoke.py prints as the per-round times. Spans
-that cover device work should end in a synchronize to mean device time;
-the rounds do, because each one hands its commitments to the host.
+kernel batch inside it; `totals(depth)` sums them by name, which
+chip_smoke.py prints as the per-round times. Spans that cover device work
+should end in a synchronize to mean device time; the rounds do, because
+each one hands its commitments to the host.
 
 One tracer may serve a pipelined prove, whose launch halves run on a
-worker thread: the nesting depth is kept per thread. `add_event` records
-a span of a duration measured elsewhere (a dispatched kernel batch forced
-later, a batched round shared by several members).
+worker thread, and a fleet dispatcher, whose fan-outs run on executor
+threads: the span stack is kept per thread. `add_event` records a span of
+a duration measured elsewhere (a dispatched kernel batch forced later, a
+batched round shared by several members).
+
+Across processes (the fleet): every tracer owns a 128-bit `trace_id`,
+every span a 64-bit id (`sid`, what `span` yields) with a `parent` link,
+and a wall-anchored start `ts`. A dispatcher call carries its trace id and
+span id in the frame (runtime/protocol.py's TRACED flag); the worker
+records its serve spans into a `Tracer(trace_id=..., proc="worker/i")`
+and ships `dump()` back on TRACE_DUMP; `merge_traces` stitches the dumps
+into one timeline, each shifted by its process's clock offset. A span
+is its name, depth, duration, start, id and parent link, nothing more.
 """
 
+import os
+import secrets
+import socket
 import threading
 import time
 from contextlib import contextmanager
 
 
+def new_trace_id():
+    """128-bit trace id, 32 hex chars."""
+    return secrets.token_hex(16)
+
+
+def new_span_id():
+    """64-bit span id, 16 hex chars."""
+    return secrets.token_hex(8)
+
+
 class Tracer:
-    def __init__(self):
-        self.spans = []          # (name, depth, seconds), in closing order
+    def __init__(self, trace_id=None, proc=None):
+        self.trace_id = trace_id or new_trace_id()
+        self.proc = proc or "main"
+        self.host = socket.gethostname()
+        self.pid = os.getpid()
+        self.events = []   # one dict per span, in closing order
         self._tls = threading.local()
         self._lock = threading.Lock()
+        # wall anchor: ts derives from the perf_counter delta, monotonic
+        # within the process and wall-anchored for the cross-process merge
+        self._wall0 = time.time()
+        self._perf0 = time.perf_counter()
 
-    def _depth(self):
-        return getattr(self._tls, "depth", 0)
+    def _stack(self):
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def _record(self, ev):
+        with self._lock:
+            self.events.append(ev)
 
     @contextmanager
-    def span(self, name):
+    def span(self, name, parent=None):
+        """Record one span; yields its span id. `parent` overrides the
+        inferred parent (the innermost open span on this thread): a frame
+        served on a worker links to the span id its caller sent."""
+        stack = self._stack()
+        sid = new_span_id()
+        if parent is None and stack:
+            parent = stack[-1]
+        depth = len(stack)
+        stack.append(sid)
         t0 = time.perf_counter()
-        depth = self._depth()
-        self._tls.depth = depth + 1
         try:
-            yield
+            yield sid
         finally:
-            self._tls.depth = depth
-            with self._lock:
-                self.spans.append((name, depth, time.perf_counter() - t0))
+            dur = time.perf_counter() - t0
+            stack.pop()
+            ev = {"span": name, "depth": depth, "dur_s": dur,
+                  "ts": self._wall0 + (t0 - self._perf0), "sid": sid,
+                  "tid": threading.get_ident() % 1_000_000}
+            if parent is not None:
+                ev["parent"] = parent
+            self._record(ev)
 
     def add_event(self, name, dur_s):
-        """A span of dur_s seconds at the calling thread's current
-        depth."""
-        with self._lock:
-            self.spans.append((name, self._depth(), dur_s))
+        """A span of dur_s seconds at the calling thread's current depth,
+        ending now."""
+        stack = self._stack()
+        ev = {"span": name, "depth": len(stack), "dur_s": dur_s,
+              "ts": time.time() - dur_s, "sid": new_span_id()}
+        if stack:
+            ev["parent"] = stack[-1]
+        self._record(ev)
+        return ev["sid"]
 
     def totals(self, depth=0):
         """name -> summed seconds over the spans at `depth`."""
         out = {}
         with self._lock:
-            spans = list(self.spans)
-        for name, d, s in spans:
-            if d == depth:
-                out[name] = out.get(name, 0.0) + s
+            events = list(self.events)
+        for ev in events:
+            if ev["depth"] == depth:
+                out[ev["span"]] = out.get(ev["span"], 0.0) + ev["dur_s"]
         return out
+
+    def dump(self):
+        """This process's slice of the trace as one JSON-able dict (what
+        a worker's TRACE_DUMP reply carries; merge_traces' input)."""
+        with self._lock:
+            events = [dict(ev) for ev in self.events]
+        return {"trace_id": self.trace_id, "proc": self.proc,
+                "host": self.host, "pid": self.pid, "events": events}
 
 
 class _NullTracer:
+    """Records nothing: `span` costs one contextmanager enter/exit."""
+
     @contextmanager
-    def span(self, name):
-        yield
+    def span(self, name, parent=None):
+        yield None
 
     def add_event(self, name, dur_s):
         return None
 
 
 NULL_TRACER = _NullTracer()
+
+
+def merge_traces(dumps, offsets=None):
+    """Stitch per-process dumps into one timeline.
+
+    dumps: Tracer.dump() dicts (or TRACE_DUMP replies); offsets: the
+    seconds each dump's clock runs ahead of the reference clock (dump 0's,
+    the dispatcher's), subtracted from its timestamps. Returns
+    {"trace_id", "processes": [{proc, host, pid, offset_s, spans}],
+    "events": [...]}, each event labelled with its process and the list
+    sorted by corrected start time."""
+    if offsets is None:
+        offsets = [0.0] * len(dumps)
+    trace_id = next((d.get("trace_id") for d in dumps
+                     if d.get("trace_id")), None)
+    processes, events = [], []
+    for d, off in zip(dumps, offsets):
+        if not d or not d.get("events"):
+            continue
+        proc, host, pid = (d.get("proc") or "?", d.get("host") or "?",
+                           d.get("pid") or 0)
+        processes.append({"proc": proc, "host": host, "pid": pid,
+                          "offset_s": float(off),
+                          "spans": len(d["events"])})
+        for ev in d["events"]:
+            ev = dict(ev)
+            ev["ts"] = float(ev.get("ts", 0.0)) - off
+            ev.update(proc=proc, host=host, pid=pid)
+            events.append(ev)
+    events.sort(key=lambda ev: ev["ts"])
+    return {"trace_id": trace_id, "processes": processes, "events": events}

@@ -217,3 +217,38 @@ def test_streamed_round3_matches_one_shot_at_2p16():
     be.QUOT_SLICE = 1 << 14
     be.STREAM_ELEMS = 3 << 16
     assert torch.equal(be.quotient_streamed(*head, wires, z, pi), evals)
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 21])
+@pytest.mark.parametrize("inverse,coset", MODES)
+def test_stage_panels_match_plain(n, inverse, coset):
+    """The fleet worker's stage panels (kernels 1 and 2 over a whole
+    FFT1 row panel and FFT2 column panel) against the same steps through
+    the plain versions, on the same tables, at the v1 and v2 quotient
+    domains: worker 1's rows and columns in a 4-worker plan."""
+    from distributed_plonk_tpu_torch.runtime.dispatcher import _split_rc
+    from distributed_plonk_tpu_torch.runtime.torch_stages import \
+        StageKernels
+    from distributed_plonk_tpu_torch.runtime.worker import FftTask
+    dev = _card()
+    r, c = _split_rc(n)
+    rows = [c * j // 4 for j in range(5)]
+    cols = [(r * j // 4, r * (j + 1) // 4) for j in range(4)]
+    task = FftTask(inverse, coset, n, r, c, rows[1], rows[2], cols, 1)
+    st = StageKernels(dev)
+    gen = torch.Generator(device="cpu").manual_seed(n + 2 * inverse + coset)
+    for stage, (count, size) in ((1, (rows[2] - rows[1], r)),
+                                 (2, (cols[1][1] - cols[1][0], c))):
+        # random canonical words: a top word below 2^30 keeps each value
+        # below the modulus
+        v = torch.randint(-2**31, 2**31, (8, count, size),
+                          dtype=torch.int32, generator=gen).to(dev)
+        v[7] &= 0x3FFFFFFF
+        if stage == 1:
+            tables = dict(zip(("pre", "mid"),
+                              st._stage1_tables(task, rows[1], rows[2])))
+        else:
+            tables = {"post": st._stage2_tables(task, *cols[1])}
+        got = st.panel_words(v, size, inverse, **tables)
+        want = st.panel_words(v, size, inverse, plain=True, **tables)
+        assert torch.equal(got, want), (stage, n, inverse, coset)

@@ -1,10 +1,15 @@
 """The port stands alone: no module of distributed_plonk_tpu_torch and not
 chip_smoke.py imports jax or anything of the JAX package (an AST scan),
 and importing every module of the port in a fresh interpreter leaves
-neither in sys.modules."""
+neither in sys.modules. Two checks reach what an import scan cannot: no
+string in the port names a module of the JAX package (a `python -m
+distributed_plonk_tpu.runtime.worker` in a subprocess argument list), and
+every relative import, the lazy ones inside functions included, resolves
+to a module of the port and a name defined there."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -56,3 +61,71 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_string_names_a_jax_package_module():
+    pattern = re.compile(r"\bdistributed_plonk_tpu\.")
+    bad = []
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    pattern.search(node.value):
+                bad.append("%s:%d %r" % (path.name, node.lineno,
+                                         node.value[:80]))
+    assert bad == []
+
+
+def _module_file(parts):
+    """The port file of a dotted module path inside the port, or None."""
+    base = PORT.joinpath(*parts)
+    for cand in (base.with_suffix(".py"), base / "__init__.py"):
+        if cand.is_file():
+            return cand
+    return None
+
+
+def _top_level_names(path):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names |= {n.id for t in targets for n in ast.walk(t)
+                      if isinstance(n, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0]
+                      for a in node.names}
+    return names
+
+
+def test_every_relative_import_resolves_inside_the_port():
+    bad, seen = [], 0
+    for path in sorted(PORT.rglob("*.py")):
+        pkg = list(path.relative_to(PORT).parent.parts)
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.ImportFrom) or node.level == 0:
+                continue
+            seen += 1
+            where = "%s:%d" % (path.relative_to(PORT), node.lineno)
+            if node.level - 1 > len(pkg):
+                bad.append(where + " climbs out of the port")
+                continue
+            base = pkg[:len(pkg) - (node.level - 1)]
+            target = base + (node.module.split(".") if node.module else [])
+            mod = _module_file(target)
+            if mod is None:
+                bad.append("%s no module %s" % (where, ".".join(target)))
+                continue
+            defined = _top_level_names(mod)
+            for alias in node.names:
+                if alias.name not in defined and \
+                        _module_file(target + [alias.name]) is None:
+                    bad.append("%s %s has no %s" % (
+                        where, ".".join(target) or "the port", alias.name))
+    assert seen > 100
+    assert bad == []
