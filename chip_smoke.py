@@ -48,7 +48,26 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    n = 2^18, quotient domain 2^21): the device SRS of 2^18 + 3 powers,
    preprocess, a cold and a warm prove and one with the one-shot round 3
    (all three identical), verify, per-round spans and peak device memory.
-9. Fleet: the sharded 4-step FFT's stage panels (kernels 1 and 2 over
+9. Mesh, four shards on this card (make_mesh(4): one process, every
+   shard's kernels on the card): dryrun_multichip(4) (a mesh iNTT and
+   coset NTT, an MSM and a tiny prove against their oracles);
+   MeshNttPlan at 2^16 and 2^21 in all four modes equal to the
+   single-card ntt (and to its plain version at 2^16), graph-timed beside
+   it in the last phase; MeshMsmContext over v2's device key equal to
+   TorchBackend.commit_many_h (kernel 3 on each shard, the planes folded
+   by kernel 4: the launches per batch are checked), and kernel 4 at the
+   fold's shape against its plain version; then the v2 prove on
+   MeshBackend, cold and warm, with phase 8's prove rng: the bytes equal
+   phase 8's proof and verify, every NTT at n and m and all 13
+   commitments are counted on the mesh path, with per-round seconds,
+   peak device memory above the resident beside the memory plan, the
+   launches and the idle share.
+10. Zoo: every kind of circuits/ builds (the rollup at height 16 with 8
+   updates, n = 2^16); range (8 bits x 2) and preimage (x 1) prove on the
+   card and on TorchBackend(device="cpu") to the same bytes; the rollup
+   proves cold and warm on TorchBackend and on MeshBackend(make_mesh(4))
+   to the same bytes; every proof verifies.
+11. Fleet: the sharded 4-step FFT's stage panels (kernels 1 and 2 over
    each FFT1 row panel and FFT2 column panel of a 4-worker plan) against
    their plain versions in all four modes at 2^16 and 2^21, then four
    port workers (runtime/worker.py, one process and CUDA context each on
@@ -65,13 +84,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    dispatcher raises it), or any recovery by the dispatcher (a
    reconnect, an adopted range, a rerouted NTT or evaluation, a replan,
    a quarantine), fails the phase.
-10. Device time: torch.profiler's CUDA kernel times for one launch of
+12. Device time: torch.profiler's CUDA kernel times for one launch of
    each kernel at its parity shape, and for one more warm prove of the
    2^13 and of the v2 workload (device busy time by kernel and the idle
    share; "not measured" if the profiler records no CUDA events); then
    each kernel's "ms", its device time: CUDA events around the replay of
-   a CUDA graph of its launches, and the same for the stage panels of
-   phase 9 beside the single-card ntt of the whole vector.
+   a CUDA graph of its launches, the same for the stage panels of phase
+   11 and the mesh NTTs of phase 9, each beside the single-card ntt of
+   the whole vector, and kernel 4 at the mesh fold's shape.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -370,6 +390,10 @@ def read_launches(label, names=PATH_KERNELS):
     return launches
 
 
+def sync():
+    torch.cuda.synchronize()
+
+
 def peak_mib(mem0):
     """Peak device memory above `mem0` bytes since the last reset, MiB."""
     torch.cuda.synchronize()
@@ -549,6 +573,214 @@ def launch_delta(before, after, label, names):
     return dict(total)
 
 
+MODES = ((False, False), (True, False), (False, True), (True, True))
+
+
+def mode_name(inverse, coset):
+    return "%s%s" % ("inverse" if inverse else "forward",
+                     " coset" if coset else "")
+
+
+def seeded_words(dev, rng, *shape):
+    """Random canonical Fr words on dev (a top word below 2^30 keeps every
+    value below the modulus), made on the device from a seeded generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(rng.randrange(1 << 62))
+    v = torch.randint(-2**31, 2**31, (8,) + shape, dtype=torch.int32,
+                      device=dev, generator=g)
+    v[7] &= 0x3FFFFFFF
+    return v
+
+
+def mesh_ntt_checks(mesh, sizes, dev, rng, mesh_runs):
+    """MeshNttPlan over `mesh` at each size in all four modes, equal to the
+    single-card kernel 2 (and, at 2^16 and below, to its plain version) on
+    the same (8, 2, size) words; the per-mode table build seconds. Adds a
+    batch-1 call per size and mode to mesh_runs for graph timing."""
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import ntt_torch as N
+    from distributed_plonk_tpu_torch.parallel.ntt_mesh import MeshNttPlan
+    for size in sizes:
+        mplan = MeshNttPlan(mesh, size)
+        plan = N.get_plan(size, dev)
+        v = seeded_words(dev, rng, 2, size)
+        for inverse, coset in MODES:
+            mode = mode_name(inverse, coset)
+            t = time.perf_counter()
+            mplan.tables(inverse, coset)
+            sync()
+            tables_s = time.perf_counter() - t
+            _build.reset_launches()
+            got = mplan.ntt(v, inverse, coset)
+            read_launches("the mesh ntt 2^%d %s" % (
+                size.bit_length() - 1, mode), ("mont_mul", "ntt"))
+            assert max_abs_err(got, N.ntt(plan, v, inverse, coset)) == 0, \
+                ("mesh ntt vs single-card ntt", size, mode)
+            plain = ""
+            if size <= 1 << 16:
+                assert max_abs_err(got, N.ntt_ref(plan, v, inverse,
+                                                  coset)) == 0
+                plain = " and its plain version"
+            print("mesh ntt (8, 2, 2^%d) %s over %d shards: equal to the "
+                  "single-card ntt%s; tables %.3f s; rows %d x %d then %d "
+                  "x %d a shard" % (size.bit_length() - 1, mode, mesh.size,
+                                    plain, tables_s, 2 * mplan.rows_a,
+                                    mplan.r, 2 * mplan.rows_b, mplan.c),
+                  flush=True)
+            one = v[:, :1].contiguous()
+            mesh_runs["mesh ntt (8, 1, 2^%d) %s" % (
+                size.bit_length() - 1, mode)] = (
+                lambda one=one, m=mplan, i=inverse, c=coset: m.ntt(one, i, c),
+                5)
+            mesh_runs["single-card ntt (8, 1, 2^%d) %s" % (
+                size.bit_length() - 1, mode)] = (
+                lambda one=one, p=plan, i=inverse, c=coset: N.ntt(p, one, i,
+                                                                  c), 5)
+
+
+def mesh_prove_checks(mesh, ckt, pk, vk, want_blob, seed_be, label,
+                      rounds=("cold", "warm")):
+    """MeshBackend(mesh) proves (ckt, pk), whose handles seed_be holds, once
+    per label in rounds with prove rng Random(1): every proof's bytes equal
+    want_blob and verify; every NTT at n and m and every commitment took
+    the mesh path (the counters); per-round seconds, peak memory above the
+    resident, the launches of the last prove (returned); then one more
+    prove under the profiler (device busy time and idle share)."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.parallel import memory_plan
+    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
+        MeshBackend
+    from distributed_plonk_tpu_torch.poly import Domain
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.trace import Tracer
+    from distributed_plonk_tpu_torch.verifier import verify
+    be = MeshBackend(mesh)
+    be.register_pk_polys(pk, *seed_be.pk_polys(pk))
+    n = ckt.n
+    m = Domain(6 * (n + 1) + 1).size        # the quotient domain
+    launches = None
+    for r in rounds:
+        be.mesh_ntt_calls.clear()
+        be.replicated_ntt_calls.clear()
+        be.mesh_msm_calls = 0
+        mem0 = reset_peak()
+        _build.reset_launches()
+        tr = Tracer()
+        t = time.perf_counter()
+        proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
+        sync()
+        secs = time.perf_counter() - t
+        mib = peak_mib(mem0)
+        launches = read_launches("the %s %s mesh prove" % (label, r),
+                                 PATH_KERNELS + ("proj_add",))
+        assert proof_io.serialize_proof(proof) == want_blob, \
+            "%s %s mesh proof differs from the single-card proof" % (label,
+                                                                      r)
+        assert not be.replicated_ntt_calls, be.replicated_ntt_calls
+        assert set(be.mesh_ntt_calls) == {n, m}, be.mesh_ntt_calls
+        assert be.mesh_msm_calls == 13, be.mesh_msm_calls
+        print("%s %s prove on MeshBackend(%d shards) %.3f s; equal to the "
+              "single-card proof; peak device memory above the resident "
+              "%.1f MiB" % (label, r, mesh.size, secs, mib))
+        print("  rounds: " + json.dumps(
+            {k: round(v, 4) for k, v in tr.totals(0).items()}))
+        print("  spans: " + json.dumps(
+            {k: round(v, 4) for k, v in tr.totals(1).items()}))
+        print("  counters: mesh_ntt_calls %s, replicated_ntt_calls %s, "
+              "mesh_msm_calls %d" % (dict(be.mesh_ntt_calls),
+                                     dict(be.replicated_ntt_calls),
+                                     be.mesh_msm_calls))
+        print("  launches: " + json.dumps(launches), flush=True)
+    plan = memory_plan.round3_mesh_plan(n, m, mesh.size)
+    print("  memory plan (round 3, MiB): lead %.1f, per shard NTT %.1f"
+          % (plan["lead"] / 2**20, plan["shard"] / 2**20))
+    t = time.perf_counter()
+    assert verify(vk, ckt.public_input(), proof, rng=random.Random(2))
+    print("  verify ok in %.3f s" % (time.perf_counter() - t))
+    profile_prove(lambda: prove(random.Random(1), ckt, pk, be),
+                  "%s warm mesh prove" % label)
+    return launches
+
+
+def zoo_checks(dev, rollup_params, cpu_kinds=True):
+    """The circuit zoo: every kind builds (the rollup at rollup_params);
+    range and preimage prove on the card and on the CPU's plain versions
+    to the same bytes (cpu_kinds); the rollup proves on TorchBackend and on
+    MeshBackend over four shards to the same bytes. Every proof verifies.
+    Returns the rollup's seconds by backend."""
+    from distributed_plonk_tpu_torch import circuits, kzg, proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
+        MeshBackend
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.verifier import verify
+    kinds = [("range", {"bits": 8, "count": 2}), ("preimage", {"count": 1}),
+             ("rollup", rollup_params)]
+    built = {}
+    for kind, params in kinds:
+        params = circuits.validate_params(kind, params)
+        t = time.perf_counter()
+        built[kind] = circuits.build(kind, params, seed=3)
+        print("zoo %s %s: n = %d, %d public inputs, built in %.3f s"
+              % (kind, json.dumps(params), built[kind].n,
+                 built[kind].num_inputs, time.perf_counter() - t),
+              flush=True)
+
+    def run(ckt, be, count):
+        """preprocess + count proves -> (blobs, seconds: pre, each prove)."""
+        srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF,
+                                         device=dev)
+        t = time.perf_counter()
+        pk, vk = kzg.preprocess(srs, ckt, be)
+        sync()
+        secs = [time.perf_counter() - t]
+        blobs = []
+        for _ in range(count):
+            _build.reset_launches()
+            t = time.perf_counter()
+            proof = prove(random.Random(3), ckt, pk, be)
+            sync()
+            secs.append(time.perf_counter() - t)
+            blobs.append(proof_io.serialize_proof(proof))
+        assert verify(vk, ckt.public_input(), proof, rng=random.Random(4))
+        return blobs, secs
+
+    if cpu_kinds:
+        for kind in ("range", "preimage"):
+            card, card_s = run(built[kind], TorchBackend(device=dev), 1)
+            read_launches("the zoo %s prove" % kind)
+            cpu, cpu_s = run(built[kind], TorchBackend(device="cpu"), 1)
+            assert card == cpu, "zoo %s: card and CPU proofs differ" % kind
+            print("zoo %s: card and CPU proofs equal, both verify; card "
+                  "preprocess %.3f s, prove %.3f s; CPU (plain versions) "
+                  "preprocess %.3f s, prove %.3f s"
+                  % ((kind,) + tuple(card_s) + tuple(cpu_s)), flush=True)
+    ckt = built["rollup"]
+    out = {}
+    blobs = []
+    for label, be in (("TorchBackend", TorchBackend(device=dev)),
+                      ("MeshBackend", MeshBackend(make_mesh(4, dev)))):
+        got, secs = run(ckt, be, 2)
+        read_launches("the rollup's warm %s prove" % label, PATH_KERNELS + (
+            ("proj_add",) if label == "MeshBackend" else ()))
+        if label == "MeshBackend":
+            assert not be.replicated_ntt_calls, be.replicated_ntt_calls
+        blobs += got
+        out[label] = secs
+        print("zoo rollup (n = %d) on %s: preprocess %.3f s, cold prove "
+              "%.3f s, warm prove %.3f s; verify ok"
+              % ((ckt.n, label) + tuple(secs)), flush=True)
+        del be
+    assert len(set(blobs)) == 1, "rollup proofs differ"
+    print("zoo rollup: TorchBackend and MeshBackend proofs (cold, warm) "
+          "equal")
+    return out
+
+
 def phase(name):
     print("== phase: %s" % name, flush=True)
     return time.perf_counter()
@@ -590,6 +822,9 @@ def main():
     from distributed_plonk_tpu_torch.runtime.torch_stages import \
         StageKernels
     from distributed_plonk_tpu_torch.runtime.worker import FftTask
+    from distributed_plonk_tpu_torch.parallel.dryrun import dryrun_multichip
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.msm_mesh import MeshMsmContext
 
     class Interrupted(Exception):
         pass
@@ -1284,24 +1519,86 @@ def main():
     assert verify(vk2, ckt2.public_input(), proof2, rng=random.Random(2))
     print("v2 proofs identical (cold, warm, one-shot round 3); verify ok in "
           "%.3f s" % (time.perf_counter() - t))
-    del vk2, proof2
+    del proof2
     done("v2", t0)
 
-    # --- 9. fleet: four port workers on this card (each its own process
+    # --- 9. mesh: MeshBackend over four shards of this card (one process,
+    # every shard's kernels on the card): the dry run, the mesh NTT and
+    # MSM against the single-card kernels, the v2 prove against phase 8's
+    t0 = phase("mesh")
+    mesh = make_mesh(4)
+    print("mesh: %r" % (mesh,))
+    _build.reset_launches()
+    t = time.perf_counter()
+    counts = dryrun_multichip(4)
+    sync()
+    read_launches("dryrun_multichip(4)", PATH_KERNELS + ("proj_add",))
+    print("dryrun_multichip(4): %.3f s; the mesh iNTT, coset NTT, MSM and "
+          "tiny prove equal their oracles; counters %s"
+          % (time.perf_counter() - t, json.dumps(counts)), flush=True)
+    mesh_runs = {}      # graph-timed in the last phase
+    mesh_ntt_checks(mesh, (1 << 16, 1 << 21), dev, rng, mesh_runs)
+    t = time.perf_counter()
+    mctx = MeshMsmContext(mesh, pk2.ck)
+    sync()
+    key_s = time.perf_counter() - t
+    words = seeded_words(dev, rng, 5, n2 + 2)
+    hs = [words[:, i] for i in range(5)]
+    _build.reset_launches()
+    t = time.perf_counter()
+    got = mctx.msm_mont_limbs_many(hs)
+    msm_s = time.perf_counter() - t
+    lm = read_launches("the mesh msm of 5 handles", (
+        "msm_digits", "bucket_sums", "msm_tail", "proj_add"))
+    assert [lm[k] for k in ("msm_digits", "bucket_sums", "msm_tail",
+                            "proj_add")] == [4, 4, 1, 3], lm
+    t = time.perf_counter()
+    assert got == be2.commit_many_h(pk2.ck, hs), "mesh msm"
+    print("mesh msm over v2's device key (%d powers, %d shards of %d "
+          "points, keys built in %.3f s): 5 handles in %.3f s, equal to "
+          "TorchBackend.commit_many_h (%.3f s)"
+          % (len(pk2.ck), mesh.size, mctx.local_n, key_s, msm_s,
+             time.perf_counter() - t), flush=True)
+    # kernel 4 at the fold's shape: two shards' bucket planes of the batch
+    v = mctx.stack(hs)
+    loc = mctx.local_n
+    fold = tuple(tuple(c.contiguous() for c in mctx.shards[s].bucket_planes(
+        v[:, :, s * loc:(s + 1) * loc])) for s in (0, 1))
+    want, pms = plain_ms(lambda: CT.proj_add_ref(*fold))
+    assert max_abs_err(CT._add_cuda(*fold), want) == 0
+    lanes = fold[0][0].numel() // 12
+    runs["proj_add fold"] = (lambda: CT._add_cuda(*fold), 50)
+    print("parity proj_add fold %s exact  launched from Python %.4f ms  "
+          "plain %.3f ms  bound %.4f ms (%s)" % (
+              tuple(fold[0][0].shape), launch_ms(runs["proj_add fold"][0], 50),
+              pms, bound_ms(9 * 48 * lanes, lanes * 12 * FQ_MUL_IMADS),
+              bound_by(9 * 48 * lanes, lanes * 12 * FQ_MUL_IMADS)))
+    del mctx, v, hs, words
+    mesh_launches = mesh_prove_checks(mesh, ckt2, pk2, vk2, blobs[0], be2,
+                                      "v2")
+    for name, rec in kernels.items():
+        rec["mesh_launches"] = mesh_launches[name]
+    del vk2
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("mesh", t0)
+
+    # --- 10. the circuit zoo: every kind builds; range and preimage prove
+    # on the card and on the CPU to one proof; the rollup at n = 2^16 on
+    # TorchBackend and on the mesh to one proof
+    t0 = phase("zoo")
+    zoo_checks(dev, {"height": 16, "updates": 8})
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("zoo", t0)
+
+    # --- 11. fleet: four port workers on this card (each its own process
     # and CUDA context, so the card is time-shared and the times measure
     # the protocol, not a four-card fleet): the stage panels against their
     # plain versions, the sharded FFT and the fleet MSM at v2 size against
     # the single-card kernels, the v1 proof through the fleet
     t0 = phase("fleet")
     panel_runs = {}     # graph-timed in the last phase
-
-    def rand_words(*shape):
-        """Random canonical Fr words on the card (a top word below 2^30
-        keeps every value below the modulus), made on the card."""
-        v = torch.randint(-2**31, 2**31, (8,) + shape, dtype=torch.int32,
-                          device=dev)
-        v[7] &= 0x3FFFFFFF
-        return v
 
     for size in (1 << 16, 1 << 21):
         r, c = _split_rc(size)
@@ -1319,9 +1616,9 @@ def main():
                                rows[me + 1], cols, me)
                 pre, mid = st._stage1_tables(task, task.rs, task.re)
                 post = st._stage2_tables(task, task.cs, task.ce)
-                calls.append((rand_words(task.re - task.rs, r), r,
+                calls.append((seeded_words(dev, rng, task.re - task.rs, r), r,
                               {"pre": pre, "mid": mid}))
-                calls.append((rand_words(task.ce - task.cs, c), c,
+                calls.append((seeded_words(dev, rng, task.ce - task.cs, c), c,
                               {"post": post}))
             torch.cuda.synchronize()
             tables_s = time.perf_counter() - t
@@ -1351,7 +1648,7 @@ def main():
                 lambda calls=calls, inv=inverse, st=st: [
                     st.panel_words(v, n_, inv, **tb)
                     for v, n_, tb in calls], 3)
-            whole = rand_words(1, size)
+            whole = seeded_words(dev, rng, 1, size)
             panel_runs["single-card ntt (8, 1, 2^%d) %s" % (
                 size.bit_length() - 1, mode)] = (
                 lambda whole=whole, plan=N.get_plan(size, dev), inv=inverse,
@@ -1474,7 +1771,7 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     done("fleet", t0)
 
-    # --- 10. device time, after the counters were read and the proves timed:
+    # --- 12. device time, after the counters were read and the proves timed:
     # torch.profiler, then CUDA graphs (captured last, so that no capture
     # precedes a timing of calls from Python)
     t0 = phase("profile")
@@ -1487,6 +1784,7 @@ def main():
     torch.cuda.empty_cache()
     graph_kernels(runs, kernels)
     graph_kernels(panel_runs, {})
+    graph_kernels(mesh_runs, {})
     nbytes, imads = bounds["ntt x25"]
     print("ntt coset fwd (8, 25, 65536): bound %.4f ms (%s)"
           % (bound_ms(nbytes, imads), bound_by(nbytes, imads)))

@@ -426,6 +426,15 @@ def points_to_device(bases_affine, pad, device):
             torch.tensor(infs, device=device))
 
 
+def window_of(n):
+    """(signed, c, windows, buckets) of an n-point key: signed c = 7 from
+    256 points, else unsigned c = window_bits(n)."""
+    if n >= 256:
+        return True, 7, W7, 1 << 6
+    c = window_bits(n)
+    return False, c, SCALAR_BITS // c, 1 << c
+
+
 def shifted_key(x, y, inf, c, windows):
     """(12, n) affine bases -> the (windows * n, 24) point-major key of
     2^(c*w) P_j at row w * n + j: c doublings (P + P, kernel 4) per window
@@ -465,18 +474,31 @@ class MsmContext:
     BATCH_CHUNK = 32
 
     def __init__(self, bases, device=None):
-        self.device = F.resolve_device(device, "MsmContext")
-        n = len(bases)
-        self.n = n
-        self.signed = n >= 256
-        self.c = 7 if self.signed else window_bits(n)
-        self.windows = W7 if self.signed else SCALAR_BITS // self.c
-        self.n_buckets = 1 << (self.c - 1) if self.signed else 1 << self.c
+        device = F.resolve_device(device, "MsmContext")
         if isinstance(bases, DeviceCommitKey):
-            ax, ay, self.inf = CT.batch_to_affine(bases.point)
+            ax, ay, inf = CT.batch_to_affine(bases.point)
         else:
-            ax, ay, self.inf = points_to_device(bases, 0, self.device)
-        self.key = shifted_key(ax, ay, self.inf, self.c, self.windows)
+            ax, ay, inf = points_to_device(bases, 0, device)
+        self._build(ax, ay, inf)
+
+    @classmethod
+    def from_affine(cls, ax, ay, inf, key):
+        """A context over (12, n) affine Montgomery bases already on a
+        device, (n,) inf marking points at infinity, and their
+        window-shifted key, built by the caller (shifted_key with
+        window_of(n)'s c and windows)."""
+        ctx = cls.__new__(cls)
+        ctx._build(ax, ay, inf, key)
+        return ctx
+
+    def _build(self, ax, ay, inf, key=None):
+        self.device = ax.device
+        self.n = ax.shape[1]
+        self.signed, self.c, self.windows, self.n_buckets = \
+            window_of(self.n)
+        self.inf = inf
+        self.key = shifted_key(ax, ay, inf, self.c, self.windows) \
+            if key is None else key
 
     def stack(self, hs):
         """(8, L <= n) handles -> one (8, B, n) zero-padded batch."""
@@ -485,18 +507,26 @@ class MsmContext:
         return torch.stack([torch.nn.functional.pad(
             h.to(self.device), (0, self.n - h.shape[1])) for h in hs], dim=1)
 
+    def bucket_planes(self, v):
+        """(8, B, n) Montgomery Fr scalars on this context's device -> the
+        bucket sums ((12, B, n_buckets),)*3 (kernel 3: msm_digits, then
+        bucket_sums)."""
+        ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
+        return bucket_sums(self.key, ops, keys, v.shape[1], self.n_buckets)
+
+    def tail(self, planes):
+        """Bucket sums -> ((12, B),)*3 projective totals (kernel 4's
+        msm_tail)."""
+        return msm_tail(*planes, self.signed)
+
     def msm_mont_limbs_many_async(self, hs):
         """Enqueue the commitments of (8, L <= n) Montgomery Fr coefficient
         handles, BATCH_CHUNK handles per launch sequence; returns force()
         -> affine host points, which does the transfers and the host
         decode. Nothing here waits on the device."""
-        totals = []
-        for i in range(0, len(hs), self.BATCH_CHUNK):
-            v = self.stack(hs[i:i + self.BATCH_CHUNK])
-            ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
-            sums = bucket_sums(self.key, ops, keys, v.shape[1],
-                               self.n_buckets)
-            totals.append(msm_tail(*sums, self.signed))
+        totals = [self.tail(self.bucket_planes(
+            self.stack(hs[i:i + self.BATCH_CHUNK])))
+            for i in range(0, len(hs), self.BATCH_CHUNK)]
 
         def force():
             return [p for t in totals for p in CT.proj_to_affine(t)]

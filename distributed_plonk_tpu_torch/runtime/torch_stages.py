@@ -34,7 +34,7 @@ omits it and folds 1/r and 1/c into its mid and post tables instead.
 
 The tables are gathers from one table of powers of w, w^-1, g or g^-1 per
 domain, built on the device by a prefix-product ladder of kernel 1
-(`field_torch.cumprod`), so no table is built from host ints.
+(backend/tables_torch.py), so no table is built from host ints.
 """
 
 import threading
@@ -45,22 +45,8 @@ from ..constants import FR_GENERATOR
 from ..fields import fr_inv, fr_root_of_unity
 from ..backend import field_torch as F
 from ..backend import limbs, ntt_torch
+from ..backend.tables_torch import gather, powers
 from ..backend.field_torch import FR
-
-
-def _powers(base, n, device):
-    """(8, n) Montgomery words of base^0 .. base^(n-1), on the device."""
-    one = F.one_like(FR, torch.empty((FR.n_words, 1), dtype=torch.int32,
-                                     device=device))
-    b = limbs.lift_scalar(base, device)
-    return F.cumprod(FR, torch.cat([one, b.expand(FR.n_words, n - 1)],
-                                   dim=1))
-
-
-def _gather(table, index):
-    """table[:, index] for an int64 (B, L) index -> (8, B, L) words."""
-    return table[:, index.reshape(-1)].reshape(
-        (table.shape[0],) + tuple(index.shape))
 
 
 class StageKernels:
@@ -100,10 +86,10 @@ class StageKernels:
             j1 = self._arange(0, r)[None, :]
             pre = None
             if task.coset and not task.inverse:
-                pre = _gather(_powers(FR_GENERATOR, n, self.device),
+                pre = gather(powers(FR_GENERATOR, n, self.device),
                               j2 + c * j1)
             w = fr_root_of_unity(n)
-            mid = _gather(_powers(fr_inv(w) if task.inverse else w, n,
+            mid = gather(powers(fr_inv(w) if task.inverse else w, n,
                                   self.device), j2 * j1)
             return pre, mid
         return self._cached(("s1", task.n, task.inverse, task.coset, rs, re),
@@ -118,7 +104,7 @@ class StageKernels:
         def build():
             k1 = self._arange(cs, ce)[:, None]
             k2 = self._arange(0, task.c)[None, :]
-            return _gather(_powers(fr_inv(FR_GENERATOR), task.n,
+            return gather(powers(fr_inv(FR_GENERATOR), task.n,
                                    self.device), k1 + task.r * k2)
         return self._cached(("s2", task.n, task.inverse, task.coset, cs, ce),
                             build)

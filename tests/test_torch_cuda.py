@@ -252,3 +252,35 @@ def test_stage_panels_match_plain(n, inverse, coset):
         got = st.panel_words(v, size, inverse, **tables)
         want = st.panel_words(v, size, inverse, plain=True, **tables)
         assert torch.equal(got, want), (stage, n, inverse, coset)
+
+
+@pytest.mark.parametrize("inverse,coset", MODES)
+def test_mesh_ntt_matches_single_card_ntt(inverse, coset):
+    """The 4-step mesh NTT over four shards of the card (kernels 1 and 2
+    on each shard's rows, the all-to-all as tile copies) against the
+    single-card kernel 2 and its plain version at 2^16, batch 2."""
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.ntt_mesh import MeshNttPlan
+    dev = _card()
+    n = 1 << 16
+    gen = torch.Generator(device="cpu").manual_seed(n + 2 * inverse + coset)
+    v = torch.randint(-2**31, 2**31, (8, 2, n), dtype=torch.int32,
+                      generator=gen).to(dev)
+    v[7] &= 0x3FFFFFFF
+    got = MeshNttPlan(make_mesh(4, dev), n).ntt(v, inverse, coset)
+    plan = N.get_plan(n, dev)
+    assert torch.equal(got, N.ntt_cuda(plan, v, inverse, coset))
+    assert torch.equal(got, N.ntt_ref(plan, v, inverse, coset))
+
+
+def test_mesh_msm_matches_single_card_msm():
+    """The range-sharded MSM over four shards of the card (kernel 3 per
+    shard, the planes folded by kernel 4) against the single-card
+    MsmContext over the same 1,000 bases."""
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.msm_mesh import MeshMsmContext
+    dev = _card()
+    bases = [C.g1_mul(C.G1_GEN, k + 2) for k in range(1000)]
+    hs = [TL.lift(_values(R_MOD, 1000, 90 + k), dev) for k in range(3)]
+    got = MeshMsmContext(make_mesh(4, dev), bases).msm_mont_limbs_many(hs)
+    assert got == M.MsmContext(bases, dev).msm_mont_limbs_many(hs)

@@ -129,3 +129,20 @@ def test_every_relative_import_resolves_inside_the_port():
                         where, ".".join(target) or "the port", alias.name))
     assert seen > 100
     assert bad == []
+
+
+def test_no_module_of_the_port_reads_the_environment():
+    """The port's settings are constants or arguments: no module reads
+    os.environ or os.getenv (the JAX package's DPT_* knobs have no
+    counterpart, in parallel/ and circuits/ as elsewhere)."""
+    bad = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and \
+                    node.attr in ("environ", "getenv", "environb"):
+                bad.append("%s:%d %s" % (path.relative_to(PORT),
+                                         node.lineno, node.attr))
+    assert {p.parent.name for p in PORT.rglob("*.py")} >= {"parallel",
+                                                            "circuits"}
+    assert bad == []
