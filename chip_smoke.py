@@ -84,7 +84,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    dispatcher raises it), or any recovery by the dispatcher (a
    reconnect, an adopted range, a rerouted NTT or evaluation, a replan,
    a quarantine), fails the phase.
-12. Device time: torch.profiler's CUDA kernel times for one launch of
+12. Service: the port's ProofService on this card over TCP (a
+   ServiceClient), with two pool workers, a store, a journal, chaos on
+   and four slots of cuda:0 (so the mesh class leases a 2-slot submesh):
+   PING; WARMUP of v1 twice (built, then memory); a rollup job (height
+   16, 8 updates, seed 3: the pool class), then, once the scheduler is
+   building its keys, four v1 jobs (seeds 11-14: one prove_many batch)
+   and the v2 job (seed 11: the mesh class); every job done, its RESULT
+   bytes equal to a direct prove on phase 3's, the zoo's and phase 8's
+   warm backends and verifying under the bucket's vk (which equals those
+   phases' vk); AGGREGATE of the v1 jobs, fetched and verified; METRICS
+   (3 key builds, the placements, no retry); a kill at round 2 that
+   resumes to the uninterrupted bytes; a second service crashed at a v1
+   job's journal ROUND2 and a third one restarted on the same store and
+   journal: finished jobs served from their artifacts, the crashed one
+   resumed from its store checkpoint without round 1, its keys loaded
+   from disk. Every kernel entry must launch in the phase; per-job wait
+   and run seconds, key-build seconds and the phase's peak memory are
+   printed beside the card's name and power limit.
+13. Device time: torch.profiler's CUDA kernel times for one launch of
    each kernel at its parity shape, and for one more warm prove of the
    2^13 and of the v2 workload (device busy time by kernel and the idle
    share; "not measured" if the profiler records no CUDA events); then
@@ -107,6 +125,7 @@ before printing any result.
 
 import collections
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -703,12 +722,14 @@ def mesh_prove_checks(mesh, ckt, pk, vk, want_blob, seed_be, label,
     return launches
 
 
-def zoo_checks(dev, rollup_params, cpu_kinds=True):
+def zoo_checks(dev, rollup_params):
     """The circuit zoo: every kind builds (the rollup at rollup_params);
     range and preimage prove on the card and on the CPU's plain versions
-    to the same bytes (cpu_kinds); the rollup proves on TorchBackend and on
+    to the same bytes; the rollup proves on TorchBackend and on
     MeshBackend over four shards to the same bytes. Every proof verifies.
-    Returns the rollup's seconds by backend."""
+    Returns the rollup's seconds by backend, and (circuit, warm
+    TorchBackend, vk, proof bytes) of its TorchBackend run, which the
+    service phase proves against."""
     from distributed_plonk_tpu_torch import circuits, kzg, proof_io
     from distributed_plonk_tpu_torch.backend import _build
     from distributed_plonk_tpu_torch.backend.torch_backend import \
@@ -731,7 +752,8 @@ def zoo_checks(dev, rollup_params, cpu_kinds=True):
               flush=True)
 
     def run(ckt, be, count):
-        """preprocess + count proves -> (blobs, seconds: pre, each prove)."""
+        """preprocess + count proves -> (blobs, seconds: pre, each prove,
+        vk)."""
         srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF,
                                          device=dev)
         t = time.perf_counter()
@@ -747,24 +769,25 @@ def zoo_checks(dev, rollup_params, cpu_kinds=True):
             secs.append(time.perf_counter() - t)
             blobs.append(proof_io.serialize_proof(proof))
         assert verify(vk, ckt.public_input(), proof, rng=random.Random(4))
-        return blobs, secs
+        return blobs, secs, vk
 
-    if cpu_kinds:
-        for kind in ("range", "preimage"):
-            card, card_s = run(built[kind], TorchBackend(device=dev), 1)
-            read_launches("the zoo %s prove" % kind)
-            cpu, cpu_s = run(built[kind], TorchBackend(device="cpu"), 1)
-            assert card == cpu, "zoo %s: card and CPU proofs differ" % kind
-            print("zoo %s: card and CPU proofs equal, both verify; card "
-                  "preprocess %.3f s, prove %.3f s; CPU (plain versions) "
-                  "preprocess %.3f s, prove %.3f s"
-                  % ((kind,) + tuple(card_s) + tuple(cpu_s)), flush=True)
+    for kind in ("range", "preimage"):
+        card, card_s, _ = run(built[kind], TorchBackend(device=dev), 1)
+        read_launches("the zoo %s prove" % kind)
+        cpu, cpu_s, _ = run(built[kind], TorchBackend(device="cpu"), 1)
+        assert card == cpu, "zoo %s: card and CPU proofs differ" % kind
+        print("zoo %s: card and CPU proofs equal, both verify; card "
+              "preprocess %.3f s, prove %.3f s; CPU (plain versions) "
+              "preprocess %.3f s, prove %.3f s"
+              % ((kind,) + tuple(card_s) + tuple(cpu_s)), flush=True)
     ckt = built["rollup"]
     out = {}
     blobs = []
     for label, be in (("TorchBackend", TorchBackend(device=dev)),
                       ("MeshBackend", MeshBackend(make_mesh(4, dev)))):
-        got, secs = run(ckt, be, 2)
+        got, secs, vk = run(ckt, be, 2)
+        if label == "TorchBackend":
+            rollup = (ckt, be, vk, got[0])
         read_launches("the rollup's warm %s prove" % label, PATH_KERNELS + (
             ("proj_add",) if label == "MeshBackend" else ()))
         if label == "MeshBackend":
@@ -778,7 +801,284 @@ def zoo_checks(dev, rollup_params, cpu_kinds=True):
     assert len(set(blobs)) == 1, "rollup proofs differ"
     print("zoo rollup: TorchBackend and MeshBackend proofs (cold, warm) "
           "equal")
-    return out
+    return out, rollup
+
+
+# the service phase's workloads: the reference's v1 and v2 Merkle
+# workloads and the zoo's rollup at n = 2^16
+SERVICE_SPECS = {
+    "v1": {"kind": "merkle", "height": 32, "num_proofs": 1},
+    "rollup": {"kind": "rollup", "height": 16, "updates": 8},
+    "v2": {"kind": "merkle", "height": 32, "num_proofs": 50},
+}
+
+
+def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
+                   specs=SERVICE_SPECS):
+    """The port's proof service on the card, driven over TCP by a
+    ServiceClient the way a deployment is: bucket keys built on the card,
+    v1 jobs batched through prove_many, the rollup on the pool, v2 on a
+    leased 2-slot submesh of this card, a worker killed at round 2, the
+    service crashed at a journal ROUND2 and restarted. Every proof equals
+    a direct prove of the same circuit and key on an earlier phase's warm
+    backend and verifies; the phase fails on any failed job, dispatch
+    error, unexpected retry or recovery.
+
+    The batch is deterministic: the rollup is submitted first and the
+    four v1 jobs only once the scheduler has started the rollup's key
+    build (its bucket_misses is 2). The scheduler is one thread, so the
+    v1 jobs wait in the queue until that build is done, and its next pop
+    takes all four (the pop takes every queued job of the head's shape,
+    up to max_batch 8), and the pool proves a batch group as one
+    prove_many call (it never folds a group into a round pipeline). The
+    service runs at its defaults, as `python -m
+    distributed_plonk_tpu_torch.service` does.
+
+    v1_ref: phase 3's (warm backend, pk, vk); rollup_ref: the zoo phase's
+    (circuit, warm backend, vk, proof bytes); v2_ref: phase 8's (circuit,
+    warm backend, pk, vk). Returns the launch counts of the phase."""
+    device = torch.device(device)
+    from distributed_plonk_tpu_torch import aggregate as AGG, proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.runtime.faults import FaultInjector, Rule
+    from distributed_plonk_tpu_torch.service import ProofService, \
+        ServiceClient
+    from distributed_plonk_tpu_torch.service.jobs import (
+        JobSpec, build_circuit, shape_key)
+    from distributed_plonk_tpu_torch.verifier import verify
+
+    v1, rollup, v2 = specs["v1"], specs["rollup"], specs["v2"]
+    workdir = tempfile.mkdtemp(prefix="dpt-service-")
+    kw = dict(port=0, prover_workers=2, device=device,
+              store_dir=os.path.join(workdir, "store"),
+              journal_dir=os.path.join(workdir, "journal"))
+
+    def say(msg):
+        print("[%s] %s" % (smi, msg), flush=True)
+
+    def same_vk(a, b):
+        return all(getattr(a, k) == getattr(b, k) for k in (
+            "domain_size", "num_inputs", "selector_comms", "sigma_comms",
+            "k", "g2", "tau_g2"))
+
+    # (label, RESULT header, RESULT bytes, bucket vk, direct prove): held
+    # to each other after the launch counters are read, so the direct
+    # proves' launches do not count as the service's
+    checks = []
+
+    def check_proof(svc, header, blob, direct, label):
+        res = svc.buckets.get(JobSpec.from_wire(header["spec"]))
+        checks.append((label, header, blob, res.vk, direct))
+
+    def direct_v1(seed):
+        be, pk, _ = v1_ref
+        spec = JobSpec.from_wire(dict(v1, seed=seed))
+        return proof_io.serialize_proof(prove(
+            random.Random(seed), build_circuit(spec), pk, be))
+
+    def wait_done(c, jid, timeout_s=900):
+        st = c.wait(jid, timeout_s=timeout_s, poll_s=0.1)
+        assert st["state"] == "done", st
+        return st
+
+    t_phase = time.perf_counter()
+    mem0 = reset_peak()
+    done_blobs = {}
+    try:
+        # --- service 1: four slots of this card, chaos on -------------------
+        svc = ProofService(chaos=True, devices=[device] * 4, **kw).start()
+        _build.reset_launches()
+        try:
+            with ServiceClient("127.0.0.1", svc.port) as c:
+                c.ping()
+                w = [c.warmup(v1), c.warmup(v1)]
+                assert [x["source"] for x in w] == ["built", "memory"], w
+                rid = c.submit(dict(rollup, seed=3))["job_id"]
+                deadline = time.monotonic() + 300
+                while c.metrics()["counters"].get("bucket_misses", 0) < 2:
+                    assert time.monotonic() < deadline, "rollup key build"
+                    time.sleep(0.01)
+                v1_ids = [c.submit(dict(v1, seed=s))["job_id"]
+                          for s in (11, 12, 13, 14)]
+                v2_id = c.submit(dict(v2, seed=11))["job_id"]
+                sts = {jid: wait_done(c, jid) for jid in
+                       [rid] + v1_ids + [v2_id]}
+                for jid in v1_ids:
+                    assert sts[jid]["placement"] == "batch", sts[jid]
+                assert sts[rid]["placement"] == "pool", sts[rid]
+                assert sts[v2_id]["placement"] == "mesh", sts[v2_id]
+                assert max(sts[j]["batch_size"] for j in v1_ids) >= 2
+
+                # each job's bytes against a direct prove on a warm backend
+                res1 = svc.buckets.get(JobSpec.from_wire(v1))
+                assert same_vk(res1.vk, v1_ref[2]), "v1 bucket vk"
+                for seed, jid in zip((11, 12, 13, 14), v1_ids):
+                    header, blob = c.result(jid)
+                    check_proof(svc, header, blob,
+                                functools.partial(direct_v1, seed),
+                                "v1 seed %d" % seed)
+                    done_blobs[jid] = blob
+                r_ckt, r_be, r_vk, r_blob = rollup_ref
+                res_r = svc.buckets.get(JobSpec.from_wire(rollup))
+                assert same_vk(res_r.vk, r_vk), "rollup bucket vk"
+
+                def direct_rollup():
+                    want = proof_io.serialize_proof(prove(
+                        random.Random(3), r_ckt, res_r.pk, r_be))
+                    assert want == r_blob, "rollup: the bucket pk's prove " \
+                        "differs from the zoo phase's proof"
+                    return want
+                header, blob = c.result(rid)
+                check_proof(svc, header, blob, direct_rollup, "rollup")
+                done_blobs[rid] = blob
+                ckt2, be2, pk2, vk2 = v2_ref
+                res2 = svc.buckets.get(JobSpec.from_wire(v2))
+                assert same_vk(res2.vk, vk2), "v2 bucket vk"
+                header, blob = c.result(v2_id)
+                check_proof(svc, header, blob, lambda: proof_io.
+                            serialize_proof(prove(random.Random(11), ckt2,
+                                                  pk2, be2)), "v2")
+                done_blobs[v2_id] = blob
+                mesh_be, = svc.scheduler._mesh_backends.values()
+                assert mesh_be.mesh.size == 2, mesh_be.mesh
+                assert mesh_be.mesh_msm_calls > 0
+                say("v2 proved on %r (%d mesh MSM calls)"
+                    % (mesh_be.mesh, mesh_be.mesh_msm_calls))
+
+                # aggregate the four v1 jobs
+                t = time.perf_counter()
+                rep = c.aggregate(v1_ids)
+                agg = c.fetch_aggregate(rep["agg_id"])
+                assert AGG.verify(agg, {shape_key(JobSpec.from_wire(v1)):
+                                        res1.vk})
+                say("aggregate of the 4 v1 jobs: built in %.3f s on the "
+                    "server, fetched and verified in %.3f s"
+                    % (rep["build_s"], time.perf_counter() - t))
+
+                m = c.metrics()
+                ctr, hist = m["counters"], m["histograms"]
+                assert ctr.get("bucket_misses") == 3, ctr
+                assert ctr.get("placement_batch", 0) >= 1, ctr
+                assert ctr.get("placement_pool", 0) >= 1, ctr
+                assert ctr.get("placement_mesh") == 1, ctr
+                assert ctr.get("batch_jobs", 0) >= 2, ctr
+                assert ctr.get("batch_proves", 0) >= 1, ctr
+                assert ctr.get("jobs_completed") == 6, ctr
+                for k in ("job_retries", "dispatch_errors", "jobs_failed",
+                          "checkpoint_resumes", "jobs_recovered",
+                          "pipelined_proves"):
+                    assert k not in ctr, (k, ctr)
+                for r in range(1, 6):
+                    assert hist["prove_round/round%d" % r]["count"] >= 6
+                for jid, st in sts.items():
+                    say("job %s %s seed %s: placement %s, wait %.3f s, run "
+                        "%.3f s, rounds %s" % (
+                            jid, st["spec"]["kind"], st["spec"]["seed"],
+                            st["placement"], st["wait_s"], st["run_s"],
+                            json.dumps(st["rounds"])))
+                for label, spec in (("v1", v1), ("rollup", rollup),
+                                    ("v2", v2)):
+                    say("key build %s: %.3f s (bucket n = %d)" % (
+                        label, svc.buckets.get(JobSpec.from_wire(spec))
+                        .build_s, svc.buckets.get(JobSpec.from_wire(spec))
+                        .domain_size))
+
+                # --- kill: each worker armed at round 2, one v1 job ---------
+                for wk in svc.pool.workers():
+                    c.kill_worker(worker=wk.name, at_round=2)
+                kid = c.submit(dict(v1, seed=15))["job_id"]
+                st = wait_done(c, kid)
+                assert st["retries"] == 1, st
+                assert [a["outcome"] for a in st["attempts"]] == \
+                    ["killed", "ok"], st["attempts"]
+                header, blob = c.result(kid)
+                check_proof(svc, header, blob,
+                            functools.partial(direct_v1, 15), "killed v1")
+                done_blobs[kid] = blob
+                ctr = c.metrics()["counters"]
+                assert ctr.get("job_retries") == 1, ctr
+                assert ctr.get("workers_killed") == 1, ctr
+                assert ctr.get("checkpoint_resumes") == 1, ctr
+                assert "dispatch_errors" not in ctr, ctr
+                say("kill at round 2: retried once, resumed from round 2's "
+                    "snapshot, bytes equal the direct prove (run %.3f s)"
+                    % st["run_s"])
+        finally:
+            svc.shutdown()
+
+        # --- service 2: crash() at the job's journal ROUND2 -----------------
+        box = {}
+        faults = FaultInjector([Rule("kill", tag="ROUND2", plane="journal")],
+                               kill_cb=lambda _label: box["svc"].crash())
+        svc = box["svc"] = ProofService(chaos=True, faults=faults, **kw)
+        svc.start()
+        crash_spec = dict(v1, seed=16, job_key="crash-16")
+        job = svc.submit_local(crash_spec)
+        deadline = time.monotonic() + 300
+        while not svc._stopped.is_set() or svc.pool.busy():
+            assert time.monotonic() < deadline, "the journal-plane crash"
+            time.sleep(0.02)
+        assert job.state != "done"
+        assert faults.counts() == {"kill@ROUND2": {"seen": 1, "fired": 1}}
+        ctr = svc.metrics.snapshot()["counters"]
+        assert ctr.get("jobs_recovered_finished") == len(done_blobs), ctr
+
+        # --- service 3: restart on the same store and journal ----------------
+        svc = ProofService(**kw).start()
+        try:
+            for jid, blob in done_blobs.items():
+                old = svc.get_job(jid)
+                assert old.state == "done" and old.proof_bytes == blob, jid
+            again, deduped = svc.submit_ex(crash_spec)
+            assert deduped and again.id == job.id
+            assert again.done_event.wait(300) and again.state == "done", \
+                again.error
+            header = {"spec": again.spec.to_wire(),
+                      "public_input": [hex(x) for x in again.public_input]}
+            check_proof(svc, header, again.proof_bytes,
+                        functools.partial(direct_v1, 16), "crashed v1")
+            m = svc.metrics.snapshot()
+            ctr, hist = m["counters"], m["histograms"]
+            assert ctr.get("jobs_recovered_finished") == len(done_blobs)
+            assert ctr.get("jobs_recovered") == 1, ctr
+            assert ctr.get("checkpoint_resumes", 0) >= 1, ctr
+            assert ctr.get("bucket_disk_hits", 0) >= 1, ctr
+            assert "bucket_misses" not in ctr, ctr
+            assert "prove_round/round1" not in hist, hist.keys()
+            for k in ("job_retries", "dispatch_errors", "jobs_failed"):
+                assert k not in ctr, (k, ctr)
+            say("restart: %d finished jobs served from their proof "
+                "artifacts; the crashed job resumed from its store "
+                "checkpoint after round 2 (no round 1) to the direct "
+                "prove's bytes; v1 keys loaded from disk in %.3f s"
+                % (len(done_blobs), hist["bucket_disk_load"]["sum_s"]))
+        finally:
+            svc.shutdown()
+        launches = read_launches("the service phase", PATH_KERNELS + (
+            "proj_add", "proj_add_mixed"))
+        say("service phase: %.3f s, peak device memory above the resident "
+            "%.1f MiB; launches %s" % (time.perf_counter() - t_phase,
+                                       peak_mib(mem0), json.dumps(launches)))
+        direct_s = {}
+        for label, header, blob, vk, direct in checks:
+            t = time.perf_counter()
+            want = direct()
+            sync()
+            direct_s[label] = round(time.perf_counter() - t, 3)
+            assert blob == want, "%s: service bytes differ from the " \
+                "direct prove" % label
+            pub = [int(x, 16) for x in header["public_input"]]
+            assert verify(vk, pub, proof_io.deserialize_proof(blob),
+                          rng=random.Random(2)), "%s: verify" % label
+        say("every service proof equals its direct prove on an earlier "
+            "phase's warm backend (v1 on phase 3's, the rollup on the "
+            "zoo's with the bucket's pk, v2 on phase 8's; circuit build "
+            "included, one thread, seconds: %s) and verifies under the "
+            "bucket's vk" % json.dumps(direct_s))
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def phase(name):
@@ -1578,7 +1878,6 @@ def main():
                                       "v2")
     for name, rec in kernels.items():
         rec["mesh_launches"] = mesh_launches[name]
-    del vk2
     gc.collect()
     torch.cuda.empty_cache()
     done("mesh", t0)
@@ -1587,7 +1886,7 @@ def main():
     # on the card and on the CPU to one proof; the rollup at n = 2^16 on
     # TorchBackend and on the mesh to one proof
     t0 = phase("zoo")
-    zoo_checks(dev, {"height": 16, "updates": 8})
+    _, rollup_ref = zoo_checks(dev, {"height": 16, "updates": 8})
     gc.collect()
     torch.cuda.empty_cache()
     done("zoo", t0)
@@ -1771,7 +2070,20 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     done("fleet", t0)
 
-    # --- 12. device time, after the counters were read and the proves timed:
+    # --- 12. service: the port's ProofService on this card over TCP, the
+    # v1, rollup and v2 workloads through batch, pool and mesh placement,
+    # a killed worker, a crash and a restart
+    t0 = phase("service")
+    service_launches = service_checks(smi, (be, pk, vk), rollup_ref,
+                                      (ckt2, be2, pk2, vk2))
+    for name, rec in kernels.items():
+        rec["service_launches"] = service_launches[name]
+    del rollup_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("service", t0)
+
+    # --- 13. device time, after the counters were read and the proves timed:
     # torch.profiler, then CUDA graphs (captured last, so that no capture
     # precedes a timing of calls from Python)
     t0 = phase("profile")

@@ -63,16 +63,26 @@ build_seconds = {}  # library name -> seconds until its nvcc finished
 # proj_add counts the full add and proj_add_mixed the mixed add of the same
 # kernel; bucket_sums counts one per call, which launches its chunk and
 # tree kernels). CALLS counts the entry calls of the NTT, which launches
-# one kernel per pass.
+# one kernel per pass. The service's pool threads launch concurrently, so
+# every increment goes through count() under a lock (a bare `+= 1` on a
+# dict entry can lose an update when two threads interleave).
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
             "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0}
 CALLS = {"ntt": 0}
+_count_lock = threading.Lock()
+
+
+def count(name, counts=LAUNCHES):
+    """Add one to counts[name] (LAUNCHES by default)."""
+    with _count_lock:
+        counts[name] += 1
 
 
 def reset_launches():
-    for counts in (LAUNCHES, CALLS):
-        for k in counts:
-            counts[k] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, CALLS):
+            for k in counts:
+                counts[k] = 0
 
 
 def _nvcc():

@@ -118,7 +118,7 @@ def _add_cuda(p, q):
             q[0].data_ptr(), q[1].data_ptr(), z2,
             x1.numel() // FQ_WORDS, F._stream(x1))
     _build.check(rc, "proj_add")
-    _build.LAUNCHES["proj_add" if z2 is not None else "proj_add_mixed"] += 1
+    _build.count("proj_add" if z2 is not None else "proj_add_mixed")
     return out
 
 

@@ -38,6 +38,8 @@ Accumulators are homogeneous projective (X : Y : Z), identity (0 : 1 : 0);
 results decode on the host as x = X/Z, y = Y/Z.
 """
 
+import threading
+
 import torch
 
 from ..constants import FQ_MONT_R, FQ_WORDS, Q_MOD
@@ -195,7 +197,7 @@ def msm_digits_cuda(v, inf, c, signed, shifted):
                                 v.data_ptr(), flags.data_ptr(), B, n, c, W,
                                 nb, int(signed), int(shifted), F._stream(v))
     _build.check(rc, "msm_digits")
-    _build.LAUNCHES["msm_digits"] += 1
+    _build.count("msm_digits")
     return ops, keys
 
 
@@ -316,7 +318,7 @@ def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets):
             order.data_ptr(), count_start.data_ptr(), chunk_start.data_ptr(),
             P, nbk, cmax, CHUNK, F._stream(key))
     _build.check(rc, "bucket_sums")
-    _build.LAUNCHES["bucket_sums"] += 1
+    _build.count("bucket_sums")
     return out
 
 
@@ -393,7 +395,7 @@ def msm_tail_cuda(bx, by, bz, signed):
                               by.data_ptr(), bz.data_ptr(), B, nb, S, L,
                               int(signed), F._stream(bz))
     _build.check(rc, "msm_tail")
-    _build.LAUNCHES["msm_tail"] += 1
+    _build.count("msm_tail")
     return out
 
 
@@ -455,14 +457,28 @@ def shifted_key(x, y, inf, c, windows):
 
 class DeviceCommitKey:
     """A commit key held on device as Jacobian (12, n) Montgomery tensors;
-    identity padding columns (z == 0) are part of the key."""
+    identity padding columns (z == 0) are part of the key. The key carries
+    its MsmContext per device, built once: every backend on that device
+    (a service's key build and its pool workers) commits through the one
+    window-shifted copy, which is read-only after its build."""
 
     def __init__(self, px, py, pz):
         assert px.shape == py.shape == pz.shape == (FQ_WORDS, px.shape[1])
         self.point = (px, py, pz)
+        self._contexts = {}
+        self._lock = threading.Lock()
 
     def __len__(self):
         return self.point[0].shape[1]
+
+    def context(self, device):
+        """The MsmContext of this key on `device` (built on first use,
+        under the key's lock)."""
+        with self._lock:
+            ctx = self._contexts.get(device)
+            if ctx is None:
+                ctx = self._contexts[device] = MsmContext(self, device)
+        return ctx
 
 
 class MsmContext:

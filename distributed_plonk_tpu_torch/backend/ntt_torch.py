@@ -312,9 +312,9 @@ def ntt_cuda(plan, v, inverse=False, coset=False):
                     ps.lv_table.data_ptr() if ps.lv_table is not None
                     else None, stream)
             _build.check(rc, "ntt pass %d" % p)
-            _build.LAUNCHES["ntt"] += 1
+            _build.count("ntt")
             src = dst
-    _build.CALLS["ntt"] += 1
+    _build.count("ntt", _build.CALLS)
     return out
 
 

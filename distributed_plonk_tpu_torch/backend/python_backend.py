@@ -21,9 +21,23 @@ def _pad(coeffs, size):
 
 
 class PythonBackend:
-    """Reference backend. All ops on host, Python ints; handles are lists."""
+    """Reference backend. All ops on host, Python ints; handles are lists.
+    A commit key held on a device (a DeviceCommitKey, from a key built on
+    TorchBackend) is normalized to host points once per key."""
 
     name = "python"
+
+    _host_key_cache = None   # (device key, its host affine points)
+
+    def _host_key(self, ck):
+        if isinstance(ck, list):
+            return ck
+        hit = self._host_key_cache
+        if hit is None or hit[0] is not ck:
+            from .curve_torch import affine_to_host, batch_to_affine
+            hit = self._host_key_cache = (
+                ck, affine_to_host(*batch_to_affine(ck.point)))
+        return hit[1]
 
     # --- plain int-list compute API (worker daemon / dispatcher surface) ----
 
@@ -44,7 +58,7 @@ class PythonBackend:
         return C.g1_msm(bases[:len(scalars)], scalars)
 
     def commit(self, ck, coeffs):
-        return self.msm(ck, coeffs)
+        return self.msm(self._host_key(ck), coeffs)
 
     # --- poly-handle protocol (handles = int lists) --------------------------
 

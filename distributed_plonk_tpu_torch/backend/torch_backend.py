@@ -40,7 +40,7 @@ from . import limbs
 from . import ntt_torch
 from . import prover_torch as PT
 from .field_torch import FR
-from .msm_torch import MsmContext
+from .msm_torch import DeviceCommitKey, MsmContext
 
 
 class _DevicePending:
@@ -140,9 +140,17 @@ class TorchBackend:
         return [tabs["wires"][:, i] for i in range(NUM_WIRE_TYPES)]
 
     def pk_polys(self, pk):
-        hit = self._cached(self._pk_polys, id(pk), lambda: (
-            pk, [self.lift(s) for s in pk.selectors],
-            [self.lift(s) for s in pk.sigmas]))
+        """The proving key's 18 coefficient handles on this device: the
+        handles preprocess left on the key when it ran on this device
+        (another backend's, e.g. the service's key build), else lifted
+        from its host lists once."""
+        def build():
+            dev = getattr(pk, "device_polys", None)
+            if dev is not None and dev[0] == self.device:
+                return pk, list(dev[1]), list(dev[2])
+            return (pk, [self.lift(s) for s in pk.selectors],
+                    [self.lift(s) for s in pk.sigmas])
+        hit = self._cached(self._pk_polys, id(pk), build)
         return hit[1], hit[2]
 
     def register_pk_polys(self, pk, sel_h, sig_h):
@@ -151,6 +159,30 @@ class TorchBackend:
         with self._cache_lock:
             self._cache_put(self._pk_polys, id(pk),
                             (pk, list(sel_h), list(sig_h)))
+
+    def warm_stages(self, domain_size, ck=None):
+        """Build what a prove at this domain size needs before its first
+        job arrives (the service's WARMUP with aot, store.aot_warmup): the
+        kernels (nvcc, on the card), the NttPlans at n and at the
+        quotient domain, round 3's quotient-domain tables, and, given the
+        commit key, its window-shifted MSM context. Returns what it
+        built."""
+        from ..poly import Domain
+        from . import _build
+        n = domain_size
+        quot = Domain((NUM_WIRE_TYPES + 1) * (n + 1) + 1)
+        out = {"backend": self.name, "device": str(self.device),
+               "kernels": [], "ntt_plans": [n, quot.size]}
+        if self.device.type == "cuda":
+            _build.load()
+            out["kernels"] = sorted(_build.SOURCES)
+        for size in out["ntt_plans"]:
+            ntt_torch.get_plan(size, self.device)
+        self._domain_tables(quot.size, n, quot.group_gen)
+        if ck is not None:
+            self._ctx(ck)
+            out["commit_key_points"] = len(ck)
+        return out
 
     # --- int-list compute API (the fleet worker's surface) -------------------
 
@@ -287,6 +319,11 @@ class TorchBackend:
     # --- commitments ----------------------------------------------------------
 
     def _ctx(self, ck):
+        if isinstance(ck, DeviceCommitKey):
+            # the key's own context on this device: shared with every
+            # other backend here (preprocess's, a service's pool workers)
+            return self._cached(self._msm_ctxs, id(ck),
+                                lambda: (ck, ck.context(self.device)))[1]
         return self._cached(self._msm_ctxs, id(ck),
                             lambda: (ck, MsmContext(ck, self.device)))[1]
 

@@ -1,6 +1,5 @@
 """Prover checkpoint/resume: round-boundary snapshots of an in-flight prove
-(a copy of the JAX package's checkpoint.py, minus its store backend, its
-fault-injection hook and its fsync option).
+(a copy of the JAX package's checkpoint.py, minus its fsync option).
 
 `prove(..., checkpoint=ProverCheckpoint(path))` persists, after each of
 rounds 1-4, everything the remaining rounds need: the inter-round
@@ -217,3 +216,74 @@ class ProverCheckpoint:
             os.remove(self.path)
         except FileNotFoundError:
             pass
+
+    def chaos_corrupt(self):
+        """Fault injection: flip one byte mid-file. Returns True if there
+        was a snapshot to corrupt. The next load() must detect the
+        damage and restart the prove."""
+        return _flip_middle_byte(self.path)
+
+
+def _flip_middle_byte(path):
+    """Chaos plane (runtime/faults.py corrupt_ckpt): XOR one byte at the
+    midpoint of `path`, under whatever integrity layer guards it. True
+    iff there were bytes to flip."""
+    try:
+        with open(path, "r+b") as f:
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            if not size:
+                return False
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+        return True
+    except OSError:
+        return False
+
+
+class StoreCheckpoint(ProverCheckpoint):
+    """Round-boundary checkpoints as content-addressed store artifacts.
+
+    Same format as the file backend (`encode_snapshot` npz bytes),
+    persisted via `store.ArtifactStore` under `ckpt:<name>`, as the JAX
+    package's StoreCheckpoint writes them, so a snapshot crosses packages
+    through a shared store: SHA-256 integrity on every read (a
+    bit-flipped snapshot is a detected miss, not a resumed-garbage
+    prove), the one LRU byte budget, and the STORE_FETCH wire tag.
+    """
+
+    def __init__(self, store, name):
+        super().__init__(path=None)
+        self.store = store
+        self.key = name if name.startswith("ckpt:") else f"ckpt:{name}"
+
+    def save(self, round_no, fingerprint, rng, transcript, arrays, meta):
+        blob = encode_snapshot(round_no, fingerprint, rng, transcript,
+                               arrays, meta)
+        self.store.put(self.key, blob,
+                       meta={"kind": "prover_ckpt", "round": round_no,
+                             "fingerprint": fingerprint})
+
+    def load(self, fingerprint):
+        blob = self.store.get(self.key)  # integrity-verified; corrupt=None
+        if blob is None:
+            return None
+        state = decode_snapshot(blob, fingerprint, origin=self.key)
+        if state is None:  # parse damage below the SHA's radar (stale fmt)
+            self.clear()
+        return state
+
+    def has_snapshot(self):
+        return self.store.get_entry(self.key) is not None
+
+    def clear(self):
+        self.store.delete(self.key)
+
+    def chaos_corrupt(self):
+        """Flip a byte in the backing object file (the store's SHA-256
+        must catch it on the next get). Returns True if a snapshot
+        existed: corruption is injected UNDER the integrity layer."""
+        path = self.store.object_path(self.key)
+        return path is not None and _flip_middle_byte(path)

@@ -24,9 +24,9 @@ build(params, seed) -> finalized, satisfiability-checked circuit):
             old root and final root public, every intermediate
             transition proven in-circuit
 
-The JAX package's proof service routes its `circuit_kind` through
-REGISTRY (its service/jobs.py); that routing waits for the port's
-service slice. Until then callers build a circuit with `build`.
+The proof service routes every zoo kind through REGISTRY
+(service/jobs.py: JobSpec.from_wire validates with validate_params,
+build_circuit builds with build), as the JAX package's service does.
 """
 
 from . import preimage, range_check, rollup

@@ -45,12 +45,15 @@ class ProvingKey:
     vectors; sigmas: 5 coefficient vectors.
 
     The host coefficient lists are LAZY: the device handles are what the
-    prover consumes (registered via backend.register_pk_polys), and the 18
-    host int lists are only materialized if a consumer asks for them (a
-    backend that was not the one that ran preprocess)."""
+    prover consumes (registered via backend.register_pk_polys, and kept
+    as `device_polys` = (device, selector handles, sigma handles) for the
+    other backends on that device, e.g. a service's pool workers), and
+    the 18 host int lists are only materialized if a consumer asks for
+    them (a backend on another device, the host oracle, the key store)."""
 
     def __init__(self, ck, vk, domain, lazy):
         self.ck = ck
+        self.device_polys = None
         self._selectors = self._sigmas = None
         self._lazy = lazy  # () -> (selector_lists, sigma_lists)
         self.vk = vk
@@ -206,4 +209,5 @@ def preprocess(srs, circuit, backend=None):
                     lazy=lambda: ([backend.lower(h) for h in sel_h],
                                   [backend.lower(h) for h in sig_h]))
     backend.register_pk_polys(pk, sel_h, sig_h)
+    pk.device_polys = (backend.device, tuple(sel_h), tuple(sig_h))
     return pk, vk

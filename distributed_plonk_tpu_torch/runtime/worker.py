@@ -24,12 +24,15 @@ piggybacked when the dispatcher sends a check point. Peer exchange frames
 arrive on the same port, told apart by tag.
 
 The wire protocol is the JAX package's (runtime/protocol.py), so the JAX
-package's dispatcher drives this worker too. Tags of planes the port has
-not ported (ROSTER, JOIN, LEAVE, STORE_FETCH, STORE_LIST, METRICS_FETCH,
-LOG_FETCH, PROFILE) answer ERR "<TAG> not ported".
+package's dispatcher drives this worker too. Launched with --store DIR,
+the worker serves its artifact store (bucket keys, checkpoints, proofs)
+to peers over STORE_FETCH and STORE_LIST (store/remote.py), so a fresh
+host pulls a warm peer's keys instead of rebuilding them. Tags of planes
+the port has not ported (ROSTER, JOIN, LEAVE, METRICS_FETCH, LOG_FETCH,
+PROFILE) answer ERR "<TAG> not ported".
 
 Run: python -m distributed_plonk_tpu_torch.runtime.worker <index>
-    <network.json> [--device cuda|cpu]
+    <network.json> [--device cuda|cpu] [--store DIR]
 """
 
 import json
@@ -60,7 +63,6 @@ _TRACE_CAP = 32
 
 # wire tags of planes the port has not ported yet (ROADMAP Queue 1)
 NOT_PORTED = frozenset((protocol.ROSTER, protocol.JOIN, protocol.LEAVE,
-                        protocol.STORE_FETCH, protocol.STORE_LIST,
                         protocol.METRICS_FETCH, protocol.LOG_FETCH,
                         protocol.PROFILE))
 
@@ -105,11 +107,12 @@ class FftTask:
 
 
 class WorkerState:
-    def __init__(self, backend, stages, config=None, me=0):
+    def __init__(self, backend, stages, config=None, me=0, store=None):
         self.backend = backend
         self.stages = stages
         self.config = config
         self.me = me
+        self.store = store   # store.ArtifactStore served over STORE_FETCH
         self.started = time.monotonic()
         self.base_sets = {}  # set_id -> bases (a worker can adopt ranges)
         self.lock = threading.Lock()
@@ -516,6 +519,18 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         tr = state.pop_trace(req.get("trace_id"))
         conn.send(protocol.OK,
                   json.dumps(tr.dump() if tr is not None else {}).encode())
+    elif tag == protocol.STORE_FETCH:
+        # peer-serving plane: a replacement host pulls SRS/pk/checkpoint
+        # blobs from us instead of rebuilding them
+        from ..store import remote as store_remote
+        store_remote.serve_fetch(
+            state.store, payload, conn,
+            no_store_reason="no store on this worker (--store)")
+    elif tag == protocol.STORE_LIST:
+        from ..store import remote as store_remote
+        store_remote.serve_list(
+            state.store, payload, conn,
+            no_store_reason="no store on this worker (--store)")
     elif tag in NOT_PORTED:
         conn.send(protocol.ERR,
                   b"%s not ported" % protocol.tag_name(tag).encode())
@@ -551,28 +566,40 @@ def _run_server(listener, state, ready_event=None):
     listener.close()
 
 
-def serve(index, config, device=None, ready_event=None):
+def serve(index, config, device=None, ready_event=None, store_dir=None):
     """Static-fleet daemon on `device` (None: the card, raising without
-    one; "cpu" runs the kernels' plain versions)."""
+    one; "cpu" runs the kernels' plain versions), serving the artifact
+    store at `store_dir` over STORE_FETCH/STORE_LIST when given."""
     host, port = config.workers[index]
     backend = TorchBackend(device)
     stages = StageKernels(backend.device)
+    store = None
+    if store_dir is not None:
+        from ..store import ArtifactStore
+        store = ArtifactStore(store_dir)
     listener = native.Listener(host, port)
-    state = WorkerState(backend, stages, config=config, me=index)
+    state = WorkerState(backend, stages, config=config, me=index,
+                        store=store)
     _run_server(listener, state, ready_event=ready_event)
 
 
+def _pop_flag(argv, flag):
+    """(value of `flag VALUE` in argv or None, argv without the pair)."""
+    if flag not in argv:
+        return None, argv
+    i = argv.index(flag)
+    return argv[i + 1], argv[:i] + argv[i + 2:]
+
+
 def main(argv):
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        argv = argv[:i] + argv[i + 2:]
+    device, argv = _pop_flag(argv, "--device")
+    store_dir, argv = _pop_flag(argv, "--store")
     if len(argv) != 2:
         raise SystemExit("usage: python -m distributed_plonk_tpu_torch."
                          "runtime.worker <index> <network.json> "
-                         "[--device cuda|cpu]")
-    serve(int(argv[0]), NetworkConfig.load(argv[1]), device)
+                         "[--device cuda|cpu] [--store DIR]")
+    serve(int(argv[0]), NetworkConfig.load(argv[1]), device,
+          store_dir=store_dir)
 
 
 if __name__ == "__main__":

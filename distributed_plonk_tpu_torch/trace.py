@@ -19,7 +19,12 @@ span id in the frame (runtime/protocol.py's TRACED flag); the worker
 records its serve spans into a `Tracer(trace_id=..., proc="worker/i")`
 and ships `dump()` back on TRACE_DUMP; `merge_traces` stitches the dumps
 into one timeline, each shifted by its process's clock offset. A span
-is its name, depth, duration, start, id and parent link, nothing more.
+is its name, depth, duration, start, id and parent link, plus whatever
+attributes its caller gave it (the service pool stamps the job id and its
+placement on the queue-wait span). A tracer made with a `parent_id` (a
+client's span, adopted by the service) links its root spans to it.
+`to_chrome_trace` renders a merged timeline for chrome://tracing or
+Perfetto (the service's /trace endpoint).
 """
 
 import os
@@ -41,8 +46,9 @@ def new_span_id():
 
 
 class Tracer:
-    def __init__(self, trace_id=None, proc=None):
+    def __init__(self, trace_id=None, parent_id=None, proc=None):
         self.trace_id = trace_id or new_trace_id()
+        self.parent_id = parent_id    # remote parent span (adopted ctx)
         self.proc = proc or "main"
         self.host = socket.gethostname()
         self.pid = os.getpid()
@@ -65,14 +71,15 @@ class Tracer:
             self.events.append(ev)
 
     @contextmanager
-    def span(self, name, parent=None):
+    def span(self, name, parent=None, **attrs):
         """Record one span; yields its span id. `parent` overrides the
-        inferred parent (the innermost open span on this thread): a frame
-        served on a worker links to the span id its caller sent."""
+        inferred parent (the innermost open span on this thread, else the
+        tracer's `parent_id`): a frame served on a worker links to the
+        span id its caller sent. `attrs` ride on the span's event."""
         stack = self._stack()
         sid = new_span_id()
-        if parent is None and stack:
-            parent = stack[-1]
+        if parent is None:
+            parent = stack[-1] if stack else self.parent_id
         depth = len(stack)
         stack.append(sid)
         t0 = time.perf_counter()
@@ -86,16 +93,24 @@ class Tracer:
                   "tid": threading.get_ident() % 1_000_000}
             if parent is not None:
                 ev["parent"] = parent
+            if attrs:
+                ev.update(attrs)
             self._record(ev)
 
-    def add_event(self, name, dur_s):
+    def add_event(self, name, dur_s=None, ts=None, **attrs):
         """A span of dur_s seconds at the calling thread's current depth,
-        ending now."""
+        starting at wall time `ts` (default: ending now), with `attrs` on
+        its event (the JAX package's signature, keywords first)."""
         stack = self._stack()
+        dur_s = 0.0 if dur_s is None else float(dur_s)
         ev = {"span": name, "depth": len(stack), "dur_s": dur_s,
-              "ts": time.time() - dur_s, "sid": new_span_id()}
-        if stack:
-            ev["parent"] = stack[-1]
+              "ts": time.time() - dur_s if ts is None else float(ts),
+              "sid": new_span_id()}
+        parent = stack[-1] if stack else self.parent_id
+        if parent is not None:
+            ev["parent"] = parent
+        if attrs:
+            ev.update(attrs)
         self._record(ev)
         return ev["sid"]
 
@@ -122,10 +137,10 @@ class _NullTracer:
     """Records nothing: `span` costs one contextmanager enter/exit."""
 
     @contextmanager
-    def span(self, name, parent=None):
+    def span(self, name, parent=None, **attrs):
         yield None
 
-    def add_event(self, name, dur_s):
+    def add_event(self, name, dur_s=None, ts=None, **attrs):
         return None
 
 
@@ -149,6 +164,14 @@ def merge_traces(dumps, offsets=None):
     for d, off in zip(dumps, offsets):
         if not d or not d.get("events"):
             continue
+        if "processes" in d:
+            # an already-merged timeline: its events carry their labels
+            processes.extend(dict(p) for p in d.get("processes") or [])
+            for ev in d["events"]:
+                ev = dict(ev)
+                ev["ts"] = float(ev.get("ts", 0.0)) - off
+                events.append(ev)
+            continue
         proc, host, pid = (d.get("proc") or "?", d.get("host") or "?",
                            d.get("pid") or 0)
         processes.append({"proc": proc, "host": host, "pid": pid,
@@ -161,3 +184,47 @@ def merge_traces(dumps, offsets=None):
             events.append(ev)
     events.sort(key=lambda ev: ev["ts"])
     return {"trace_id": trace_id, "processes": processes, "events": events}
+
+
+_EVENT_KEYS = ("span", "ts", "dur_s", "sid", "parent", "proc", "host",
+               "pid", "tid", "depth")
+
+
+def to_chrome_trace(merged):
+    """Merged timeline (merge_traces output, or a single Tracer.dump())
+    -> Chrome trace-event JSON dict for chrome://tracing or Perfetto:
+    complete events ("ph": "X") in microseconds from the earliest span,
+    one metadata row per process, and the timeline's structured log
+    events (obs/log.py) as instant events."""
+    if "processes" not in merged:
+        merged = merge_traces([merged])
+    events = merged.get("events") or []
+    base = min((ev["ts"] for ev in events), default=0.0)
+    out = []
+    for p in merged.get("processes", []):
+        out.append({"ph": "M", "name": "process_name", "pid": p["pid"],
+                    "args": {"name": f"{p['proc']}@{p['host']}"}})
+    for ev in events:
+        args = {k: v for k, v in ev.items() if k not in _EVENT_KEYS}
+        args["sid"] = ev.get("sid")
+        if ev.get("parent") is not None:
+            args["parent"] = ev["parent"]
+        out.append({
+            "ph": "X", "name": ev["span"], "cat": "span",
+            "ts": round((ev["ts"] - base) * 1e6, 1),
+            "dur": round(ev["dur_s"] * 1e6, 1),
+            "pid": ev.get("pid", 0), "tid": ev.get("tid", 0),
+            "args": args,
+        })
+    for ev in merged.get("logs") or []:
+        out.append({
+            "ph": "i",
+            "name": f"{ev.get('subsystem', '?')}/{ev.get('event', '?')}",
+            "cat": "log", "s": "g",
+            "ts": round((float(ev.get("ts", base)) - base) * 1e6, 1),
+            "pid": ev.get("pid", 0), "tid": 0,
+            "args": {k: v for k, v in ev.items() if k not in ("ts", "pid")},
+        })
+    return {"traceEvents": out, "displayTimeUnit": "ms",
+            "otherData": {"trace_id": merged.get("trace_id"),
+                          "base_ts_s": base}}

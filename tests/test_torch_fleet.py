@@ -12,7 +12,9 @@ every kernel's plain torch version) driven by the port's Dispatcher.
 - the JAX package's Dispatcher drives the same workers (the wire protocol
   is shared): its fft_dist and msm equal the oracle;
 - the tags of planes the port has not ported answer ERR "... not ported",
-  and the dispatcher methods that need them raise NotImplementedError.
+  and the dispatcher methods that need them raise NotImplementedError;
+  STORE_FETCH and STORE_LIST on a worker without --store answer the
+  JAX worker's "no store" ERR.
 
 Ports 20000 + 2 * (pid % 500): clear of the JAX package's fleet tests.
 """
@@ -219,13 +221,22 @@ def test_jax_dispatcher_drives_port_workers(fleet):
         d.pool.shutdown()
 
 
-@pytest.mark.parametrize("tag", ["ROSTER", "JOIN", "LEAVE", "STORE_FETCH",
-                                 "STORE_LIST", "METRICS_FETCH", "LOG_FETCH",
-                                 "PROFILE"])
+@pytest.mark.parametrize("tag", ["ROSTER", "JOIN", "LEAVE",
+                                 "METRICS_FETCH", "LOG_FETCH", "PROFILE"])
 def test_later_planes_answer_not_ported(fleet, tag):
     with pytest.raises(RuntimeError, match="%s not ported" % tag):
         fleet.workers[0].call(getattr(protocol, tag),
                               protocol.encode_json({}))
+
+
+@pytest.mark.parametrize("tag", ["STORE_FETCH", "STORE_LIST"])
+def test_store_plane_without_a_store_answers_err(fleet, tag):
+    """The store plane is ported: a worker launched without --store
+    answers the JAX worker's ERR reason (test_torch_store.py fetches from
+    one launched with it)."""
+    with pytest.raises(RuntimeError, match="no store on this worker"):
+        fleet.workers[0].call(getattr(protocol, tag),
+                              protocol.encode_json({"key": "bucket:x"}))
 
 
 @pytest.mark.parametrize("method", ["enable_membership", "fleet_metrics",
