@@ -5,8 +5,8 @@
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. Set-up: the card's name and power limit (nvidia-smi), the kernels'
-   build from csrc/ (nvcc, all sources in parallel), and the host SRS of
-   the reference v1 workload (tau = 0xDEADBEEF).
+   build from csrc/ (nvcc, all sources in parallel), and, while nvcc
+   runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF).
 2. Kernel parity: each kernel entry against its plain torch version on
    the card, on seeded inputs at the main path's shapes, with tolerance 0
    (every value is an integer in canonical form, every addition in a
@@ -84,7 +84,21 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    dispatcher raises it), or any recovery by the dispatcher (a
    reconnect, an adopted range, a rerouted NTT or evaluation, a replan,
    a quarantine), fails the phase.
-12. Service: the port's ProofService on this card over TCP (a
+12. Elastic (elastic_checks): the v1 workload through RemoteBackend over
+   port workers spawned on this card by the port's WorkerSupervisor and
+   joined through the dispatcher's membership server: two workers; two
+   more JOIN (the epoch rises, the sharded FFT plans over 4); worker 1
+   SIGKILLed at its first FFT1 by the proc fault plane, respawned and
+   rejoined at its index (heal seconds); a fifth worker whose first
+   process lies about its MSM partials, caught by duplicate execution,
+   quarantined, LEAVEd and replaced by a clean process that passes the
+   known-answer challenge, while a standing liar fails it; then a
+   ProofService proving through a fresh one-worker fleet with the
+   actuating autoscaler: three v1 jobs scale it up and, served, equal
+   their direct proves; idle, it retires back to one worker. Every proof
+   equals the fixture; every worker of a step launches every kernel of
+   the path (HEALTH `launches`).
+13. Service: the port's ProofService on this card over TCP (a
    ServiceClient), with two pool workers, a store, a journal, chaos on
    and four slots of cuda:0 (so the mesh class leases a 2-slot submesh):
    PING; WARMUP of v1 twice (built, then memory); a rollup job (height
@@ -102,7 +116,7 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    from disk. Every kernel entry must launch in the phase; per-job wait
    and run seconds, key-build seconds and the phase's peak memory are
    printed beside the card's name and power limit.
-13. Device time: torch.profiler's CUDA kernel times for one launch of
+14. Device time: torch.profiler's CUDA kernel times for one launch of
    each kernel at its parity shape, and for one more warm prove of the
    2^13 and of the v2 workload (device busy time by kernel and the idle
    share; "not measured" if the profiler records no CUDA events); then
@@ -124,6 +138,7 @@ before printing any result.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -1081,6 +1096,408 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+ELASTIC_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums",
+                   "msm_tail", "proj_add")
+LIAR = "corrupt:at=data:tag=MSM:rate=1"
+
+
+def health_launches(d, label, kind="cuda"):
+    """{fleet index: (uptime, launches, peak MiB)} of every member that
+    answers HEALTH (LEAVEd members are skipped); each must run on a device
+    of `kind`."""
+    out = {}
+    for i, w in enumerate(d.workers):
+        if d._left(i):
+            continue
+        snap = w.probe(timeout_ms=10000)
+        assert snap is not None, (label, "worker %d answers no HEALTH" % i)
+        assert snap["device"].startswith(kind), (label, i, snap["device"])
+        out[i] = (snap["uptime_s"], snap["launches"], snap["peak_mib"])
+    return out
+
+
+def elastic_delta(before, after, label, must=ELASTIC_KERNELS, exempt=()):
+    """Per-member launches between two health_launches() reads (a member
+    whose process restarted in between counts its new process's
+    launches); every member in `after` but those in `exempt` must have
+    launched every kernel of `must`. Returns the sum over the members."""
+    total = collections.Counter()
+    for i, (up, launches, _peak) in sorted(after.items()):
+        b = before.get(i)
+        delta = dict(launches) if b is None or b[0] > up else \
+            {k: launches[k] - b[1][k] for k in launches}
+        missing = [k for k in must if not delta.get(k) and i not in exempt]
+        assert not missing, (label, i, missing, delta)
+        print("  worker %d launches in %s: %s" % (
+            i, label, json.dumps({k: v for k, v in delta.items() if v})))
+        total.update(delta)
+    return total
+
+
+def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
+                   v1_spec=SERVICE_SPECS["v1"]):
+    """The elastic fleet on this card: port workers spawned by the port's
+    WorkerSupervisor (`--join`, each its own process and CUDA context, the
+    kernels already built), joined through the dispatcher's membership
+    server, proving the reference's v1 workload through RemoteBackend with
+    every NTT sharded:
+
+    1. two supervised workers: the proof equals the fixture;
+    2. add_slot twice: both JOIN, the epoch rises, the next prove's
+       sharded FFT plans over 4 (each worker serves FFT2); the fixture;
+    3. kill:at=proc:tag=FFT1:worker=1:nth=1 through sup.proc_killer(d):
+       the prove replans and equals the fixture; the victim is respawned
+       and re-joins at its index with warm stats; heal seconds;
+    4. a fifth slot whose first process lies about its MSM partials
+       (--faults corrupt:at=data:tag=MSM:rate=1) under duplicate execution
+       of every range: the prove catches and quarantines it (LEAVE), the
+       supervisor replaces it with a clean process that passes the
+       known-answer challenge and rejoins, the proof equals the fixture;
+       a worker that still lies fails run_challenge;
+    5. a ProofService proving through RemoteBackend over a fresh
+       one-worker fleet, with the actuating autoscaler (1 to 2 workers):
+       three v1 jobs (seeds 11-13, the first flagship) queue, the
+       autoscaler scales up (a JOIN), every proof equals its direct
+       TorchBackend prove on phase 3's warm backend, and the idle service
+       retires back to one worker by drain-then-LEAVE, with no respawn and
+       no flap.
+
+    Every worker of each step must launch every kernel of the fleet
+    prove's path (ELASTIC_KERNELS). Prints each prove's seconds, each
+    worker's spawn-to-JOIN seconds, the heal seconds, the autoscaler's
+    decisions with their ticks, peak device memory (this process above
+    its resident, and each worker's) and each worker's launches, beside
+    the card's name and power limit. Returns the launches summed over the
+    workers and steps."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.runtime import protocol
+    from distributed_plonk_tpu_torch.runtime.dispatcher import (
+        Dispatcher, RemoteBackend, WorkerHandle)
+    from distributed_plonk_tpu_torch.runtime.faults import (FaultInjector,
+                                                            Rule)
+    from distributed_plonk_tpu_torch.runtime.integrity import MSM_DUP_RATE
+    from distributed_plonk_tpu_torch.runtime.netconfig import NetworkConfig
+    from distributed_plonk_tpu_torch.runtime.supervisor import (
+        WorkerSupervisor, reserve_port)
+    from distributed_plonk_tpu_torch.service import ProofService
+    from distributed_plonk_tpu_torch.service.jobs import (
+        JobSpec, build_bucket_keys, build_circuit, shape_key)
+    from distributed_plonk_tpu_torch.service.metrics import Metrics
+    from distributed_plonk_tpu_torch.store import keycache
+    from distributed_plonk_tpu_torch.store.artifacts import ArtifactStore
+
+    def say(msg):
+        print("[%s] %s" % (smi, msg), flush=True)
+
+    def wait_for(cond, label, timeout_s=120):
+        deadline = time.monotonic() + timeout_s
+        while True:
+            got = cond()
+            if got:
+                return got
+            assert time.monotonic() < deadline, "elastic: " + label
+            time.sleep(0.05)
+
+    def ctr(metrics, name):
+        return metrics.snapshot()["counters"].get(name, 0)
+
+    kind = torch.device(device).type
+    # the workers' --device: none on the card (their default)
+    worker_dev = None if kind == "cuda" else kind
+    dev_args = [] if worker_dev is None else ["--device", worker_dev]
+    t_phase = time.perf_counter()
+    mem0 = reset_peak()
+    workdir = tempfile.mkdtemp(prefix="dpt-elastic-")
+    total = collections.Counter()
+    procs = []
+    sups, dispatchers = [], []
+    joins = []      # (monotonic time, membership join event)
+
+    def fleet(n, metrics, faults=None, spawn_cmd=None):
+        """A membership dispatcher and n supervised workers on the card,
+        with each join's spawn-to-JOIN seconds printed."""
+        d = Dispatcher(NetworkConfig([]), metrics=metrics, faults=faults)
+        mserver = d.enable_membership()
+        sup = WorkerSupervisor("127.0.0.1", mserver.port, n=n,
+                               device=worker_dev, store_dirs=[os.path.join(
+                                   workdir, "s%d-%d" % (len(sups), i))
+                                   for i in range(n)],
+                               metrics=metrics, cwd=HERE)
+        if spawn_cmd is not None:
+            sup.spawn_cmd = functools.partial(spawn_cmd, sup)
+
+        def on_join(ev):
+            if ev.get("event") != "join":
+                return
+            joins.append((time.monotonic(), ev))
+            j = sup.slot_for_port(ev["port"])
+            if j is not None:
+                say("worker %d (slot %d) %s: spawn to JOIN %.3f s, epoch %d"
+                    % (ev["index"], j, "rejoined" if ev["rejoin"]
+                       else "joined",
+                       time.monotonic() - sup.slots[j].spawned_at,
+                       ev["epoch"]))
+        d.membership.subscribe(on_join)
+        sup.attach_registry(d.membership)
+        sups.append(sup)
+        dispatchers.append(d)
+        sup.start()
+        return d, sup
+
+    def wait_width(d, k):
+        wait_for(lambda: len(d.workers) >= k
+                 and len(d.tracker.usable_set()) >= k, "width %d" % k)
+
+    def fleet_prove(d, label, be=None, settle=None):
+        """One v1 prove through the fleet; `settle()` runs before the
+        launches are read again (a replacement still joining)."""
+        before = health_launches(d, label, kind)
+        stats0 = d.stats()
+        be = be or RemoteBackend(d, dist_fft_min=ckt.n)
+        t = time.perf_counter()
+        proof = prove(random.Random(1), ckt, pk, be)
+        secs = time.perf_counter() - t
+        assert proof_io.serialize_proof(proof) == golden, label
+        if settle is not None:
+            settle()
+        after = health_launches(d, label, kind)
+        served = [i for i, (s0, s1) in enumerate(zip(stats0, d.stats()))
+                  if s1.get(str(protocol.FFT2), 0) > s0.get(
+                      str(protocol.FFT2), 0)]
+        say("%s: %.3f s, equal to the fixture; sharded FFT over %d "
+            "workers %s, epoch %d" % (label, secs, len(served), served,
+                                      d.epoch))
+        total.update(elastic_delta(before, after, label))
+        return be, served
+
+    try:
+        metrics = Metrics()
+        faults = FaultInjector([], metrics=metrics)
+        liar = {"slot": None, "spawned": 0}
+
+        def spawn_cmd(sup, i, slot):
+            cmd = sup.worker_cmd(i, slot)
+            if i == liar["slot"] and not liar["spawned"]:
+                liar["spawned"] += 1     # only the first process lies
+                cmd += ["--faults", LIAR]
+            return cmd
+
+        # the v1 bucket's keys in slot 0's store: what a warm
+        # rejoin pulls from its store peers (step 3)
+        v1_key = shape_key(JobSpec.from_wire(v1_spec))
+        t = time.perf_counter()
+        keycache.store_bucket(ArtifactStore(os.path.join(workdir, "s0-0")),
+                              v1_key, *build_bucket_keys(
+                                  JobSpec.from_wire(v1_spec), device=device))
+        bucket = keycache.bucket_store_key(v1_key)
+        say("v1 bucket keys built into slot 0's store in %.3f s"
+            % (time.perf_counter() - t))
+
+        # --- 1. two supervised workers --------------------------------------
+        t = time.perf_counter()
+        d, sup = fleet(2, metrics, faults=faults, spawn_cmd=spawn_cmd)
+        wait_width(d, 2)
+        say("step 1: 2 workers joined in %.3f s" % (time.perf_counter() - t))
+        _be, served = fleet_prove(d, "step 1 prove (2 workers)")
+        assert served == [0, 1], served
+
+        # --- 2. two more slots JOIN: the next prove plans over 4 ------------
+        epoch = d.epoch
+        for _ in range(2):
+            sup.add_slot(store_dir=os.path.join(
+                workdir, "s0-%d" % len(sup.slots)))
+        wait_width(d, 4)
+        assert d.epoch == epoch + 2, (epoch, d.epoch)
+        be4, served = fleet_prove(d, "step 2 prove (4 workers)")
+        assert served == [0, 1, 2, 3], served
+
+        # --- 3. a proc kill mid-prove heals at the same index ---------------
+        victim_port = d.workers[1].port
+        # the victim's replacement starts on an empty disk, so its warm
+        # rejoin must pull the bucket from a store peer
+        fresh_store = os.path.join(workdir, "s0-victim")
+        sup.slots[sup.slot_for_port(victim_port)].store_dir = fresh_store
+        kill_at = []
+        proc_kill = sup.proc_killer(d)
+
+        def stamped_kill(i):
+            kill_at.append(time.monotonic())
+            proc_kill(i)
+        faults.proc_kill_cb = stamped_kill
+        faults.rules.append(Rule.parse("kill:at=proc:tag=FFT1:worker=1:nth=1"))
+        before = health_launches(d, "step 3", kind)
+        t = time.perf_counter()
+        proof = prove(random.Random(1), ckt, pk, be4)
+        secs = time.perf_counter() - t
+        assert proof_io.serialize_proof(proof) == golden, "step 3 prove"
+        assert len(kill_at) == 1 and ctr(metrics, "faults_injected_kill") == 1
+        wait_for(lambda: len(d.tracker.usable_set()) == 4
+                 and ctr(metrics, "membership_rejoins") >= 1
+                 and all(w.probe(timeout_ms=2000) is not None
+                         for w in d.workers), "heal to full width")
+        # the rejoin re-admits the victim at once: full width from then
+        heal_s = min(t for t, ev in joins if ev["rejoin"]
+                     and t > kill_at[0]) - kill_at[0]
+        assert len(d.workers) == 4 and d.workers[1].port == victim_port
+        warm = wait_for(lambda: (d.workers[1].probe() or {}).get("warm"),
+                        "warm stats")
+        say("step 3 prove with worker 1 SIGKILLed at its first FFT1: %.3f "
+            "s, equal to the fixture; replans %d, adopted ranges %d; "
+            "respawned and rejoined at index 1, healed to width 4 in %.3f s "
+            "after the kill; warm stats %s" % (
+                secs, ctr(metrics, "fleet_fft_replans"),
+                ctr(metrics, "fleet_range_adoptions"), heal_s,
+                json.dumps(warm)))
+        assert ctr(metrics, "worker_respawns") == 1
+        assert warm["artifacts"] >= 1, warm
+        pulled = ArtifactStore(fresh_store).get(bucket)
+        assert pulled is not None and pulled == ArtifactStore(
+            os.path.join(workdir, "s0-0")).get(bucket), "warm rejoin bucket"
+        # this prove reuses step 2's base ranges, whose MSM contexts (the
+        # shifted keys proj_add builds) the workers already hold: proj_add
+        # launches only where a range is adopted. The victim's new process
+        # serves only what is left of the prove after its rejoin: it is
+        # held to nothing
+        total.update(elastic_delta(before, health_launches(d, "step 3", kind),
+                                   "step 3", must=PATH_KERNELS, exempt=(1,)))
+        faults.rules.clear()
+
+        # --- 4. a lying worker: quarantine, replace, challenge, rejoin ------
+        # a worker that keeps lying, for the refused challenge (static
+        # config, not a member)
+        liar_port = reserve_port()
+        cfg = os.path.join(workdir, "liar.json")
+        NetworkConfig(["127.0.0.1:%d" % liar_port]).save(cfg)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "distributed_plonk_tpu_torch.runtime."
+             "worker", "0", cfg, "--faults", LIAR, *dev_args], cwd=HERE))
+        # step 5's one-worker fleet starts now, beside step 4
+        m5 = Metrics()
+        d5, sup5 = fleet(1, m5)
+
+        d.integrity.msm_dup_rate = 1.0
+        liar["slot"] = len(sup.slots)
+        sup.add_slot(store_dir=os.path.join(workdir, "s0-liar"))
+        wait_width(d, 5)
+        liar_index = d.membership._find("127.0.0.1",
+                                        sup.slots[liar["slot"]].port)
+        q0 = ctr(metrics, "workers_quarantined")
+        # the liar's replacement launches its kernels in the challenge
+        # (the known-answer NTT and MSM): its count is read once it passed
+        _be, _served = fleet_prove(
+            d, "step 4 prove (5 workers, one lying, every MSM range "
+            "duplicated)", be=RemoteBackend(d, dist_fft_min=ckt.n),
+            settle=lambda: wait_for(
+                lambda: len(d.tracker.usable_set()) == 5
+                and not d.tracker.is_suspect(liar_index),
+                "the liar's replacement passes the challenge"))
+        assert d.quarantined.get(liar_index), d.quarantined
+        assert ctr(metrics, "workers_quarantined") == q0 + 1
+        assert ctr(metrics, "integrity_challenges") == 1
+        assert ctr(metrics, "integrity_challenges_failed") == 0
+        assert liar["spawned"] == 1 and ctr(metrics, "worker_respawns") == 2
+        snap = d.workers[liar_index].probe()
+        assert snap["sdc_injected"] == 0, snap
+        d.integrity.msm_dup_rate = MSM_DUP_RATE
+        wait_for(lambda: WorkerHandle("127.0.0.1", liar_port).probe(),
+                 "the standing liar")
+        t = time.perf_counter()
+        refused = d.run_challenge("127.0.0.1", liar_port)
+        assert refused is False, "a lying worker passed the challenge"
+        say("step 4: worker %d quarantined (%s), LEAVEd, replaced by a clean "
+            "process that passed the challenge and rejoined; a standing "
+            "liar failed run_challenge (%.3f s); integrity failures %d"
+            % (liar_index, d.quarantined[liar_index],
+               time.perf_counter() - t, ctr(metrics, "integrity_failures")))
+        peaks = {i: p for i, (_u, _l, p) in
+                 health_launches(d, "step 4", kind).items()}
+        say("workers' peak device memory (MiB): %s" % json.dumps(peaks))
+        sup.stop()      # frees the card for step 5
+
+        # --- 5. the service on the fleet, with the autoscaler ----------------
+        wait_width(d5, 1)
+        svc = ProofService(
+            port=0, prover_workers=1, device=torch.device(device),
+            backend_factory=lambda: RemoteBackend(d5, dist_fft_min=ckt.n))
+        try:
+            svc.attach_membership(d5.membership)
+            seeds = (11, 12, 13)
+            jobs = [svc.submit_local(dict(
+                v1_spec, seed=s, **({"slo": "flagship"} if s == 11 else {})))
+                for s in seeds]
+            asc = svc.attach_autoscaler(
+                supervisor=sup5, mode="1", start=False, tick_s=0.2,
+                min_workers=1, max_workers=2, up_queue_per_worker=2,
+                up_ticks=2, down_ticks=10, up_cooldown_s=1.0,
+                down_cooldown_s=1.0)
+            log = []
+            tick = asc.tick
+
+            def logged_tick():
+                ds = tick()
+                if ds:
+                    log.append((asc.state()["ticks"], ds))
+                return ds
+            asc.tick = logged_tick
+            asc.start()
+            wait_for(lambda: sup5.active_count() == 2, "scale up")
+            wait_width(d5, 2)
+            before = health_launches(d5, "step 5", kind)
+            t = time.perf_counter()
+            svc.start()
+            for job in jobs:
+                assert job.done_event.wait(600) and job.state == "done", \
+                    job.error
+            serve_s = time.perf_counter() - t
+            after = health_launches(d5, "step 5", kind)
+            wait_for(lambda: sup5.active_count() == 1, "scale down")
+            wait_for(lambda: ctr(m5, "worker_retires") == 1,
+                     "retire complete")
+            total.update(elastic_delta(before, after, "step 5"))
+            sc = svc.metrics.snapshot()["counters"]
+            assert sc.get("autoscale_scale_ups") == 1, sc
+            assert sc.get("autoscale_scale_downs") == 1, sc
+            assert ctr(m5, "worker_respawns") == 0
+            assert ctr(m5, "worker_flap_capped") == 0
+            be, v1_pk, _ = v1_ref
+            for s, job in zip(seeds, jobs):
+                want = proof_io.serialize_proof(prove(
+                    random.Random(s), build_circuit(JobSpec.from_wire(
+                        dict(v1_spec, seed=s))), v1_pk, be))
+                assert job.proof_bytes == want, "service seed %d" % s
+            say("step 5: 3 v1 jobs (placements %s) served through the fleet "
+                "in %.3f s, each equal to its direct TorchBackend prove; "
+                "run seconds %s" % (
+                    sorted({j.placement for j in jobs}), serve_s,
+                    [round(j.run_s, 3) for j in jobs]))
+            for n_tick, ds in log:
+                for dd in ds:
+                    say("autoscaler tick %d: %s (%s) applied=%s detail=%s"
+                        % (n_tick, dd["action"], dd["reason"], dd["applied"],
+                           json.dumps(dd["detail"])))
+        finally:
+            svc.shutdown()
+        say("elastic phase: %.3f s; this process's peak device memory above "
+            "its resident %.1f MiB; fleet launches %s" % (
+                time.perf_counter() - t_phase, peak_mib(mem0),
+                json.dumps(dict(total))))
+        return total
+    finally:
+        for sup_ in sups:
+            sup_.stop()
+        for d_ in dispatchers:
+            try:
+                d_.shutdown()
+            finally:
+                d_.pool.shutdown(wait=False)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def phase(name):
     print("== phase: %s" % name, flush=True)
     return time.perf_counter()
@@ -1162,23 +1579,31 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t = time.perf_counter()
-    _build.load()
+
+    def build():
+        _build.load()
+        return time.perf_counter() - t
+    # nvcc runs in child processes; this thread makes the host SRS
+    # (pure Python) meanwhile
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build)
+        ckt, _ = generate_circuit(rng=random.Random(11), height=32,
+                                  num_proofs=1)
+        n = ckt.n
+        t_srs = time.perf_counter()
+        srs = kzg.universal_setup(n + 3, tau=0xDEADBEEF)
+        host_srs_s = time.perf_counter() - t_srs
+        build_s = built.result()
     print("kernels built and loaded in %.3f s (%s); nvcc seconds by "
-          "library: %s" % (time.perf_counter() - t, _build.source_hash(),
+          "library: %s" % (build_s, _build.source_hash(),
                            json.dumps({k: round(v, 1) for k, v in
                                        _build.build_seconds.items()})),
           flush=True)
     for name, log in sorted(_build.build_log.items()):
         for fn, regs, spill in ptxas_report(log):
             print("ptxas %-6s %-40s %s; %s" % (name, fn[:40], regs, spill))
-    ckt, _ = generate_circuit(rng=random.Random(11), height=32,
-                              num_proofs=1)
-    n = ckt.n
-    t = time.perf_counter()
-    srs = kzg.universal_setup(n + 3, tau=0xDEADBEEF)
-    host_srs_s = time.perf_counter() - t
-    print("circuit n = %d; host SRS of %d powers in %.3f s"
-          % (n, len(srs.powers_of_g1), host_srs_s), flush=True)
+    print("circuit n = %d; host SRS of %d powers in %.3f s (while nvcc "
+          "ran)" % (n, len(srs.powers_of_g1), host_srs_s), flush=True)
     done("setup", t0)
 
     # --- 2. kernel parity -----------------------------------------------------
@@ -1883,8 +2308,8 @@ def main():
     done("mesh", t0)
 
     # --- 10. the circuit zoo: every kind builds; range and preimage prove
-    # on the card and on the CPU to one proof; the rollup at n = 2^16 on
-    # TorchBackend and on the mesh to one proof
+    # on the card, range also on the CPU to one proof; the rollup at
+    # n = 2^16 on TorchBackend and on the mesh to one proof
     t0 = phase("zoo")
     _, rollup_ref = zoo_checks(dev, {"height": 16, "updates": 8})
     gc.collect()
@@ -2070,7 +2495,18 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     done("fleet", t0)
 
-    # --- 12. service: the port's ProofService on this card over TCP, the
+    # --- 12. elastic: supervised workers joining through the membership
+    # plane, a proc kill healed, a liar replaced through the challenge,
+    # the service's autoscaler growing and shrinking the fleet
+    t0 = phase("elastic")
+    elastic_launches = elastic_checks(smi, ckt, pk, vk, golden, (be, pk, vk))
+    for name, rec in kernels.items():
+        rec["elastic_launches"] = elastic_launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("elastic", t0)
+
+    # --- 13. service: the port's ProofService on this card over TCP, the
     # v1, rollup and v2 workloads through batch, pool and mesh placement,
     # a killed worker, a crash and a restart
     t0 = phase("service")
@@ -2083,7 +2519,7 @@ def main():
     torch.cuda.empty_cache()
     done("service", t0)
 
-    # --- 13. device time, after the counters were read and the proves timed:
+    # --- 14. device time, after the counters were read and the proves timed:
     # torch.profiler, then CUDA graphs (captured last, so that no capture
     # precedes a timing of calls from Python)
     t0 = phase("profile")

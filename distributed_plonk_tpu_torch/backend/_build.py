@@ -6,11 +6,16 @@ with ctypes; pointers and the stream pass as `c_void_p`. All sources build
 at once, one `nvcc` process each, at first use, into
 `build/dpt_torch_kernels/<hash>/` under the checkout, keyed by a hash of
 every source and the flags — an edit rebuilds, an unchanged tree reuses.
+The existence check and the build run under an `fcntl` lock file beside
+the build directory (`<hash>.lock`), so processes that start together on
+a tree with no built kernels (a supervisor's workers) run nvcc once: the
+first builds, the others wait and load its libraries.
 
 There is no fallback: without `nvcc` or a card, `load()` raises.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -139,16 +144,31 @@ def _build(out_dir):
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
 
 
+def _ensure_built():
+    """The build directory of this tree's sources, built if needed. The
+    check and the build hold an exclusive lock on `<hash>.lock` across
+    processes (the in-process callers are serialized by `_lock`)."""
+    digest = source_hash()
+    out_dir = os.path.join(BUILD_DIR, digest)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, digest + ".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not all(os.path.exists(os.path.join(out_dir, "lib%s.so" % n))
+                       for n in SOURCES):
+                _build(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out_dir
+
+
 def load():
     """name -> ctypes.CDLL for every kernel library, building if needed."""
     global _libs
     with _lock:
         if _libs is not None:
             return _libs
-        out_dir = os.path.join(BUILD_DIR, source_hash())
-        if not all(os.path.exists(os.path.join(out_dir, "lib%s.so" % n))
-                   for n in SOURCES):
-            _build(out_dir)
+        out_dir = _ensure_built()
         libs = {}
         for name in SOURCES:
             lib = ctypes.CDLL(os.path.join(out_dir, "lib%s.so" % name))

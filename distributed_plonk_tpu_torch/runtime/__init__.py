@@ -4,7 +4,9 @@ plane.
 The counterpart of the reference's worker/dispatcher runtime: a C++
 data-plane/transport library (native/dpt_native.cpp) loaded via ctypes, a
 network config, a worker daemon whose kernels run on the card
-(runtime/worker.py), and a dispatcher client (runtime/dispatcher.py). The
+(runtime/worker.py), a dispatcher client (runtime/dispatcher.py), the
+fleet's membership plane (runtime/membership.py) and a worker supervisor
+(runtime/supervisor.py). The
 wire protocol is byte-identical to the JAX package's, so either package's
 dispatcher drives either package's workers.
 """

@@ -3,9 +3,10 @@
 The port's copy of the JAX package's runtime/dispatcher.py (WorkerHandle,
 Dispatcher, RemoteBackend). It speaks the same wire protocol, so it drives
 the port's workers (runtime/worker.py, kernels on the card) and the JAX
-package's alike. The planes the port has not ported yet raise
-NotImplementedError naming their ROADMAP item: dynamic membership
-(`enable_membership`), the fleet metrics scrape (`fleet_metrics`) and
+package's alike. Dynamic membership (`enable_membership`: JOIN / LEAVE /
+ROSTER, runtime/membership.py) grows and shrinks the fleet at runtime;
+the planes the port has not ported yet raise NotImplementedError naming
+their ROADMAP item: the fleet metrics scrape (`fleet_metrics`) and
 on-demand profiles (`profile_worker`).
 
 The analog of the reference's dispatcher client library
@@ -22,9 +23,12 @@ reconnect loop with exponential backoff + jitter, a per-worker circuit
 breaker (runtime/health.py) fast-fails calls to a worker that has died so
 its ranges get adopted instead of timing out, half-open probes re-admit a
 worker that comes back, and the sharded 4-step FFT re-plans around deaths
-at ANY protocol phase (mirroring `_recover_msm`). Only a lost connection
-is routed around; an ERR reply (the worker is alive and its code or its
-kernel failed) raises WorkerError to the caller. Every recovery is
+at ANY protocol phase (mirroring `_recover_msm`), and a deterministic fault
+injector (runtime/faults.py, wire and proc planes) can be threaded through
+every frame for chaos runs. Only a lost connection is routed around; an
+ERR reply (the worker is alive and its code or its kernel failed) raises
+WorkerError to the caller, except a stale-epoch FFT_INIT, which the
+sharded FFT answers with a roster push and a replan. Every recovery is
 counted in the duck-typed `metrics` registry (inc / gauge / observe):
 fleet_reconnects, fleet_backoff_waits, fleet_breaker_opens,
 fleet_range_adoptions, fleet_ntt_reroutes, fleet_eval_reroutes,
@@ -48,10 +52,16 @@ from .health import LivenessTracker, NullMetrics
 from .integrity import (REFEREE_MAX, FleetIntegrity, IntegrityError,
                         g1_sane, power_sum)
 from .. import curve as C
+from .. import poly as P
 from ..backend import curve_torch as CT
 from ..backend.python_backend import PythonBackend
 from ..constants import R_MOD
+from ..obs import log as olog
 from ..trace import merge_traces
+
+# worker-side base-set id reserved for known-answer challenges: range ids
+# are fleet positions (small ints), so a huge constant can never collide
+CHALLENGE_SET_ID = 1 << 62
 
 # what a lost connection raises; the one failure the dispatcher routes
 # around (WorkerUnavailable, a breaker-open fast-fail, is one of these)
@@ -116,11 +126,13 @@ class WorkerHandle:
     BACKOFF_MAX_S = 2.0
 
     def __init__(self, host, port, index=0, tracker=None, metrics=None,
-                 tracer=None):
+                 tracer=None, faults=None):
         self.host, self.port = host, port
         self.index = index
         self.tracker = tracker
         self.metrics = metrics or NullMetrics()
+        # runtime/faults.FaultInjector (wire and proc planes) or None
+        self.faults = faults
         # tracer: when set, every call records an rpc span and injects
         # its {trace_id, parent_id} into the frame (protocol.TRACED), so
         # the worker's serve/kernel spans land in the same trace
@@ -194,8 +206,16 @@ class WorkerHandle:
             try:
                 if self.conn is None:
                     self.conn = self._connect()
-                self.conn.send(tag | protocol.TRACED if traced else tag,
-                               payload)
+                wire_tag = tag
+                if self.faults is not None:
+                    # may sleep (delay), raise InjectedDrop (drop),
+                    # scramble the tag (corrupt) or kill the worker
+                    # (kill); rules match the BASE tag, TRACED rides on
+                    # whatever tag the injector returns
+                    wire_tag = self.faults.on_send(self.index, tag, payload)
+                if traced:
+                    wire_tag |= protocol.TRACED
+                self.conn.send(wire_tag, payload)
                 return self.conn.recv()
             except (ConnectionError, OSError):
                 self._drop_conn_locked()
@@ -247,8 +267,11 @@ class Dispatcher:
     # below this many usable workers a sharded FFT runs whole on one
     FFT_QUORUM = 2
 
-    def __init__(self, config, metrics=None, tracer=None):
+    def __init__(self, config, metrics=None, tracer=None, faults=None):
         self.metrics = metrics or NullMetrics()
+        # chaos (runtime/faults.FaultInjector, wire and proc planes) on
+        # every frame this dispatcher sends; None keeps the path plain
+        self.faults = faults
         # result-integrity plane (runtime/integrity.py): algebraic phase
         # checks on every sharded FFT / NTT offload, duplicate-execution
         # sampling + group-law sanity on MSM partials, dup-checked
@@ -264,8 +287,10 @@ class Dispatcher:
                                        metrics=self.metrics)
         self.workers = [
             WorkerHandle(h, p, index=i, tracker=self.tracker,
-                         metrics=self.metrics, tracer=tracer)
+                         metrics=self.metrics, tracer=tracer, faults=faults)
             for i, (h, p) in enumerate(config.workers)]
+        # headroom past the initial width: membership can grow the fleet
+        # mid-life (an undersized executor only costs parallelism)
         self.pool = futures.ThreadPoolExecutor(
             max_workers=max(8, 2 * len(self.workers)))
         self._ranges = None
@@ -277,12 +302,51 @@ class Dispatcher:
         # bases — these ranges go straight to the adoption path instead
         self._unprovisioned = set()
         self.quarantined = {}
+        # dynamic membership (runtime/membership.py): enable_membership()
+        # arms it; a fleet without it is static (epoch 0 frames, fixed
+        # width)
+        self.membership = None
+        self._member_server = None
+
+    @property
+    def epoch(self):
+        """Current membership-roster version (0 = static fleet)."""
+        return self.membership.epoch if self.membership is not None else 0
 
     def enable_membership(self, host="127.0.0.1", port=0):
-        """Dynamic membership (JOIN/LEAVE/ROSTER) is not ported yet."""
-        raise NotImplementedError(
-            "dynamic membership (runtime/membership.py) is not ported: "
-            "ROADMAP Queue 1, service, store and tooling")
+        """Own a membership registry and serve it (JOIN/LEAVE/ROSTER) on
+        `host:port` (0 = ephemeral). Returns the MembershipServer (its
+        `.port` is what workers pass to --join)."""
+        from .membership import MembershipRegistry, MembershipServer
+        if self.membership is None:
+            self.membership = MembershipRegistry(
+                self, metrics=self.metrics, tracer=self.tracer)
+        if self._member_server is None:
+            self._member_server = MembershipServer(
+                self.membership, host=host, port=port)
+        return self._member_server
+
+    def adopt_worker(self, host, port):
+        """Append one worker to the fleet (the membership JOIN path);
+        returns its index. Indices are stable forever: the sharded FFT's
+        col_ranges and the MSM range table keep indexing by fleet
+        position. The new worker is schedulable at once: the next
+        fft_dist attempt plans over the wider usable set and the next
+        init_bases() range-shards across the full width; until then it
+        serves NTTs and adopts dead MSM ranges like any survivor."""
+        i = self.tracker.add_worker()
+        self.workers.append(
+            WorkerHandle(host, port, index=i, tracker=self.tracker,
+                         metrics=self.metrics, tracer=self.tracer,
+                         faults=self.faults))
+        return i
+
+    def _log(self, event, level="info", **fields):
+        """One structured log event (obs/log.py) under the dispatcher
+        subsystem, trace-correlated when a tracer is armed."""
+        olog.emit("dispatcher", event, level=level,
+                  trace_id=self.tracer.trace_id
+                  if self.tracer is not None else None, **fields)
 
     def ping(self):
         for w in self.workers:
@@ -307,6 +371,8 @@ class Dispatcher:
         get the breaker opened immediately (authoritative evidence)."""
         def one(iw):
             i, w = iw
+            if self._left(i):
+                return  # decommissioned: stays dead regardless of probes
             if w.probe() is None:
                 self.tracker.mark_dead(i)
                 w.drop_conn()
@@ -314,18 +380,28 @@ class Dispatcher:
                 self.tracker.record_ok(i)
         list(self.pool.map(one, enumerate(self.workers)))
 
+    def _left(self, i):
+        """True for a member declared permanently gone via LEAVE: the
+        re-admission planes must not probe or revive it (a decommissioned
+        address may still answer); only an explicit JOIN brings it
+        back."""
+        return self.membership is not None and self.membership.is_left(i)
+
     def _maybe_readmit(self):
         """Half-open probes for breaker-open workers whose backoff window
         elapsed; a worker that answers is re-admitted and (if bases are
         provisioned) gets its original MSM range re-uploaded so routing
         rebalances instead of leaning on the adopter forever."""
         for i in self.tracker.due_probes():
+            if self._left(i):
+                continue
             w = self.workers[i]
             if w.probe() is None:
                 self.tracker.record_failure(i)
                 continue
             w.drop_conn()  # stale pre-death stream, if any
             self.tracker.record_ok(i)  # counts fleet_readmissions
+            self._log("readmitted", worker=i)
             self._reprovision(i)
 
     def _reprovision(self, i):
@@ -648,8 +724,9 @@ class Dispatcher:
         call, not fast-fail it (call() alone would raise
         WorkerUnavailable without dialing)."""
         for i in candidates:
-            if self.tracker.is_suspect(i):
-                continue  # quarantined: never re-admitted in the port
+            if self._left(i) or self.tracker.is_suspect(i):
+                continue  # decommissioned/quarantined: a JOIN (plus, for
+                # suspects, a passed challenge) is the only way back
             if self.workers[i].probe() is None:
                 continue  # actually dead: leave the breaker open
             self.tracker.record_ok(i)  # alive: re-admit, then route to it
@@ -660,13 +737,71 @@ class Dispatcher:
     def quarantine(self, i, reason):
         """The integrity plane attributed a WRONG answer to worker i:
         mark it SUSPECT (sticky breaker — probes do NOT re-admit it, its
-        process is alive and answering; its answers are wrong). The
-        caller recomputes on the others. The verdict is kept in
-        `quarantined` (worker -> reason)."""
+        process is alive and answering; its answers are wrong), and LEAVE
+        it through the membership registry so a supervisor replaces the
+        process. The caller recomputes on the others. The verdict is kept
+        in `quarantined` (worker -> reason); re-admission is only through
+        a fresh JOIN that passes the known-answer challenge
+        (run_challenge)."""
         flipped = self.tracker.mark_suspect(i)
         self.quarantined[i] = reason
         self.workers[i].drop_conn()
+        self._log("quarantine", level="warn", worker=i, reason=reason)
+        if self.membership is not None and flipped:
+            try:
+                self.membership.leave(index=i, reason="integrity")
+            except LookupError:  # a concurrent leave got there first
+                pass
         return flipped
+
+    def run_challenge(self, host, port, timeout_s=15.0):
+        """Known-answer gate for re-admitting a worker the integrity plane
+        quarantined: a fresh random 64-point NTT and a fresh 8-base MSM on
+        the reserved CHALLENGE_SET_ID, both compared against the host
+        oracle (poly, curve). Values are drawn per call so a lying worker
+        cannot replay cached answers. Retries the connection while a
+        just-respawned worker binds; an ERR reply fails the challenge."""
+        rng = random.Random()
+        xs = [rng.randrange(R_MOD) for _ in range(64)]
+        want_ntt = P.fft(P.Domain(64), xs)
+        bases = [C.g1_mul(C.G1_GEN, k + 2) for k in range(8)]
+        sc = [rng.randrange(R_MOD) for _ in range(8)]
+        want_msm = C.g1_msm(bases, sc)
+        self.metrics.inc("integrity_challenges")
+        h = WorkerHandle(host, port, metrics=self.metrics)
+        deadline = time.monotonic() + timeout_s
+        try:
+            while True:
+                try:
+                    got_ntt = protocol.decode_scalars(h.call(
+                        protocol.NTT,
+                        protocol.encode_ntt_request(xs, False, False),
+                        traced=False))
+                    h.call(protocol.INIT_BASES,
+                           protocol.encode_init_bases(CHALLENGE_SET_ID,
+                                                      bases), traced=False)
+                    got_msm = protocol.decode_point(h.call(
+                        protocol.MSM,
+                        protocol.encode_msm_request(CHALLENGE_SET_ID, sc),
+                        traced=False))
+                    break
+                except _LOST:
+                    if time.monotonic() >= deadline:
+                        self.metrics.inc("integrity_challenges_failed")
+                        return False
+                    h.drop_conn()
+                    time.sleep(0.2)
+                except WorkerError:
+                    self.metrics.inc("integrity_challenges_failed")
+                    return False
+        finally:
+            h.close()
+        ok = got_ntt == want_ntt and got_msm == want_msm
+        if not ok:
+            self.metrics.inc("integrity_challenges_failed")
+        olog.emit("integrity", "challenge", level="info" if ok else "warn",
+                  host=host, port=port, ok=ok)
+        return ok
 
     # -- NTT ------------------------------------------------------------------
 
@@ -860,6 +995,17 @@ class Dispatcher:
                     # attribute the loss: probe everyone, open breakers on
                     # the actually-dead, then replan on the survivors
                     self._probe_fleet()
+                    if self.membership is not None:
+                        # the failure may be roster lag, not death: a
+                        # worker that missed a push rejects plans whose
+                        # epoch mismatches its table. Re-push and WAIT
+                        # (bounded) so the next attempt, which re-reads
+                        # self.epoch, runs against a converged fleet
+                        for f in self.membership.push_roster():
+                            try:
+                                f.result(timeout=5)
+                            except Exception:
+                                pass
                     if self.tracker.usable_set() == active:
                         # nobody actually died: a transient (dropped/
                         # corrupt frame, one slow call) gets ONE same-set
@@ -908,14 +1054,18 @@ class Dispatcher:
                     f"fft phase lost {len(failures)} worker(s)") \
                     from failures[0].err
 
-        # the frame's membership epoch is 0 (a static fleet); integrity
-        # announces the FFT2 partials
+        # the frame carries the membership epoch this plan was made
+        # against: a worker whose roster moved on (a join or leave landed
+        # mid-attempt) rejects it loudly and the outer loop replans at the
+        # CURRENT width, which is how the fleet replans up at the next
+        # phase boundary; integrity announces the FFT2 partials
+        epoch = self.epoch
         run_phase(
             lambda i: self.workers[i].call(
                 protocol.FFT_INIT, protocol.encode_fft_init(
                     task_id, inverse, coset, n, r, c,
                     row_bounds[i][0], row_bounds[i][1], col_ranges,
-                    epoch=0, integrity=True),
+                    epoch=epoch, integrity=True),
                 parent=fft_sid),
             active)
 
@@ -1062,6 +1212,8 @@ class Dispatcher:
         return [one(w) for w in self.workers]
 
     def shutdown(self):
+        if self._member_server is not None:
+            self._member_server.close()
         for w in self.workers:
             try:
                 w.call(protocol.SHUTDOWN)

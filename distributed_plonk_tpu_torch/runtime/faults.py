@@ -1,7 +1,37 @@
-"""Deterministic chaos injection for the proof service (a copy of the JAX
-package's runtime/faults.py, its service planes only).
+"""Deterministic chaos injection for the distributed prover and the proof
+service (a copy of the JAX package's runtime/faults.py).
 
-One injector object threads through the service's failure planes:
+One injector object threads through every failure plane:
+
+  wire plane (runtime/dispatcher.py): `on_send(worker, tag, payload)` runs
+      just before every dispatcher->worker frame. Rules select a protocol
+      tag + worker + Nth occurrence (deterministic: a chaos test kills a
+      worker at exactly one protocol phase per run) or a probability.
+      Actions:
+        kill     invoke the registered kill callback
+        drop     raise InjectedDrop (a ConnectionError) without sending:
+                 the frame "was lost"; the handle's reconnect path must
+                 resend (worker handlers are idempotent)
+        corrupt  scramble the frame TAG so the receiver rejects it loudly
+                 (ERR "unknown tag")
+        delay    sleep `ms` (slow worker / congested link)
+
+  proc plane (`at=proc`): rides the same on_send occurrence matching as
+      the wire plane, but `kill` invokes `proc_kill_cb`, which the
+      supervisor registers as a real SIGKILL of the worker SUBPROCESS
+      (runtime/supervisor.py `proc_killer`), so a chaos run exercises the
+      supervisor's detect -> respawn -> rejoin path:
+        "kill:at=proc:tag=FFT1:worker=1:nth=1"
+
+  data plane (`at=data`, runtime/worker.py): `on_data(worker, tag)` runs
+      WORKER-SIDE, right after a result is computed and before it is
+      framed: the silent-data-corruption model. The worker perturbs its
+      OWN computed value (MSM partial += G1 generator; FFT2 panel / NTT /
+      EVAL element += 1 mod r), a well-formed wrong answer that only the
+      result-integrity plane (runtime/integrity.py) can catch. `worker`
+      matches the worker's own fleet index; the port's worker takes the
+      rule text as `--faults RULES`:
+        "corrupt:at=data:tag=MSM:rate=1"
 
   checkpoint plane (`at=round`, service/pool.py): `on_round(round_no,
       checkpoint)` runs at every prover round boundary, after the snapshot
@@ -30,29 +60,41 @@ One injector object threads through the service's failure planes:
                 process exit): the record is on disk, nothing after it is
         delay   sleep `ms` (slow journal device)
 
-Not ported: the dispatcher's wire and proc planes and the worker's
-`at=data` plane (the port's fleet tests plant faults on the dispatcher's
-side instead). A rule on one of them raises ValueError. Rules come from
-code; `Rule.parse` reads the JAX package's text form:
+Rules come from code or from the JAX package's text form (`parse_rules`
+splits entries on `;`):
 
+    "kill:tag=FFT1:worker=1:nth=1;delay:tag=MSM:ms=20"
     "kill:at=journal:tag=ROUND2"
     "corrupt_ckpt:tag=2"
-    "corrupt:at=proof:nth=1"
 
-Entries are `action[:key=value]*`. Keys: tag (a round number, or on the
-journal plane a record label string), nth (1-based occurrence; default
-1), rate (probability, overrides nth), ms, max (max fires, default 1 for
-nth rules, unlimited for rate rules), at (plane: round | journal |
-proof). Occurrence counting is per rule and thread-safe.
+Entries are `action[:key=value]*`. Keys: tag (a protocol tag name or
+number, a round number, or on the journal plane a record label string),
+worker, nth (1-based occurrence; default 1), rate (probability, overrides
+nth), ms, max (max fires, default 1 for nth rules, unlimited for rate
+rules), at (plane: wire | proc | data | round | journal | proof).
+Occurrence counting is per rule and thread-safe.
 """
 
 import random
 import threading
 import time
 
-# the planes the port runs; the JAX package's wire, proc and data planes
-# have no hook in the port
-PLANES = ("round", "journal", "proof")
+from . import protocol
+
+PLANES = ("wire", "proc", "data", "round", "journal", "proof")
+
+
+class InjectedDrop(ConnectionError):
+    """A frame the injector 'lost' before it hit the socket."""
+
+
+# scrambling the tag keeps the frame well-formed but unroutable, so the
+# receiver's reply is a deterministic ERR (unknown tag), never a silently
+# wrong computation
+_CORRUPT_TAG_XOR = 0x40000000
+
+_TAG_NAMES = {name: value for name, value in vars(protocol).items()
+              if name.isupper() and isinstance(value, int)}
 
 
 class Rule:
@@ -62,18 +104,16 @@ class Rule:
                           "corrupt_ckpt"):
             raise ValueError(f"unknown fault action {action!r}")
         self.action = action
-        self.tag = tag          # round no (round) / record label (journal)
+        self.tag = tag          # protocol tag / round no / record label
         self.worker = worker    # worker index, or None = any
         self.nth = nth          # 1-based matching-occurrence to fire on
         self.rate = rate        # probability per occurrence (overrides nth)
         self.ms = ms
         # which hook runs the rule: corrupt_ckpt only makes sense at round
-        # boundaries; the JAX package's default for the others is its wire
-        # plane, which the port does not have
+        # boundaries; everything else defaults to the wire
         self.plane = plane or ("round" if action == "corrupt_ckpt" else "wire")
         if self.plane not in PLANES:
-            raise ValueError(f"fault plane {self.plane!r} not ported "
-                             f"(the port runs {PLANES})")
+            raise ValueError(f"unknown fault plane {self.plane!r}")
         if max_fires is None:
             max_fires = None if rate is not None else 1
         self.max_fires = max_fires
@@ -92,9 +132,11 @@ class Rule:
 
     @classmethod
     def parse(cls, entry):
-        """'kill:at=journal:tag=ROUND2' -> Rule. Journal rules keep the
-        record-label STRING; on the round plane the tag is a round
-        number."""
+        """'kill:tag=FFT1:worker=1:nth=2' -> Rule. Tag resolution is
+        plane-aware (after all keys are read, since `at=` may follow
+        `tag=`): journal rules keep the record-label STRING ("SUBMIT" is
+        both a protocol tag name and a journal record type); elsewhere a
+        protocol tag name resolves to its number."""
         parts = entry.strip().split(":")
         action, kvs = parts[0], parts[1:]
         kw = {}
@@ -120,23 +162,37 @@ class Rule:
             else:
                 raise ValueError(f"unknown fault key {k!r} in {entry!r}")
         if tag_raw is not None:
-            kw["tag"] = tag_raw if kw.get("plane") == "journal" \
-                else int(tag_raw)
+            if kw.get("plane") == "journal":
+                kw["tag"] = tag_raw                 # record label string
+            elif tag_raw in _TAG_NAMES:
+                kw["tag"] = _TAG_NAMES[tag_raw]     # protocol tag name
+            else:
+                kw["tag"] = int(tag_raw)
         return cls(action, **kw)
+
+
+def parse_rules(spec):
+    """'rule;rule;...' -> [Rule] (empty entries skipped)."""
+    return [Rule.parse(e) for e in (spec or "").split(";") if e.strip()]
 
 
 class FaultInjector:
     """Holds the rule set + side-effect callbacks; thread-safe.
 
-    kill_cb(label): registered by the harness that owns the service
-    (ProofService.crash in tests and chip_smoke.py). metrics: duck-typed
-    inc() (service.metrics.Metrics; a service adopts an injector built
-    without one). rng: rate-based decisions (seed it for reproducible
-    soaks)."""
+    kill_cb(worker index | journal label): registered by the harness that
+    owns the worker processes or the service (ProofService.crash in tests
+    and chip_smoke.py). proc_kill_cb(worker index): the proc plane's
+    SIGKILL of the worker subprocess (WorkerSupervisor.proc_killer); the
+    proc plane falls back to kill_cb when it is unset. metrics:
+    duck-typed inc() (service.metrics.Metrics; a service adopts an
+    injector built without one). rng: rate-based decisions (seed it for
+    reproducible soaks)."""
 
-    def __init__(self, rules=None, kill_cb=None, metrics=None, rng=None):
+    def __init__(self, rules=None, kill_cb=None, metrics=None, rng=None,
+                 proc_kill_cb=None):
         self.rules = list(rules or [])
         self.kill_cb = kill_cb
+        self.proc_kill_cb = proc_kill_cb
         self.metrics = metrics
         self._rng = rng or random.Random()
         self._lock = threading.Lock()
@@ -158,6 +214,48 @@ class FaultInjector:
             if fire:
                 rule.fired += 1
             return fire
+
+    # -- wire and proc planes (dispatcher) ------------------------------------
+
+    def on_send(self, worker, tag, payload):
+        """Run matching wire and proc rules; returns the (possibly
+        corrupted) tag. May sleep (delay), raise InjectedDrop (drop), or
+        kill the worker out from under the send (kill)."""
+        for rule in self.rules:
+            if rule.plane not in ("wire", "proc"):
+                continue
+            if not self._due(rule, tag=tag, worker=worker):
+                continue
+            self._inc(f"faults_injected_{rule.action}")
+            if rule.action == "delay":
+                time.sleep(rule.ms / 1000.0)
+            elif rule.action == "drop":
+                raise InjectedDrop(
+                    f"injected drop of tag {tag} to worker {worker}")
+            elif rule.action == "corrupt":
+                tag = tag ^ _CORRUPT_TAG_XOR
+            elif rule.action == "kill":
+                cb = (self.proc_kill_cb or self.kill_cb) \
+                    if rule.plane == "proc" else self.kill_cb
+                if cb is not None:
+                    cb(worker)
+        return tag
+
+    # -- data plane (worker-side SDC) -----------------------------------------
+
+    def on_data(self, worker, tag):
+        """Worker-side hook, run between 'result computed' and 'result
+        framed': True when a matching `corrupt:at=data` rule fires; the
+        caller then perturbs the value it just computed."""
+        fired = False
+        for rule in self.rules:
+            if rule.plane != "data" or rule.action != "corrupt":
+                continue
+            if not self._due(rule, tag=tag, worker=worker):
+                continue
+            self._inc("faults_injected_corrupt")
+            fired = True
+        return fired
 
     # -- proof plane (service, post-serialize) --------------------------------
 

@@ -15,9 +15,12 @@ panics the prove). Here each worker carries a tiny state machine:
     SUSPECT  quarantined (runtime/integrity.py attributed a WRONG answer
              to it): breaker open AND sticky — a suspect worker answers
              probes perfectly well (it is alive; its answers are wrong),
-             so `record_ok` does NOT re-admit it. The port has no way
-             back for a suspect yet (the reference's challenge-gated
-             re-JOIN belongs to the membership plane, not ported).
+             so `record_ok` does NOT re-admit it. The only way back is a
+             fresh JOIN that passes the known-answer challenge
+             (runtime/membership.py, `clear_suspect`).
+
+The table grows with the fleet (`add_worker`: a membership JOIN appends a
+worker; indices are stable, so growth is append-only).
 
 All mutable state lives in per-worker dicts guarded by `self._lock`. The
 tracker never talks to the network itself: callers report outcomes via
@@ -57,9 +60,19 @@ class LivenessTracker:
         self.metrics = metrics or NullMetrics()
         self._rng = random.Random()
         self._lock = threading.Lock()
-        self._state = [{"open": False, "failures": 0, "next_probe": 0.0,
-                        "probe_backoff": 0.0, "suspect": False}
-                       for _ in range(n_workers)]
+        self._state = [self._fresh() for _ in range(n_workers)]
+
+    @staticmethod
+    def _fresh():
+        return {"open": False, "failures": 0, "next_probe": 0.0,
+                "probe_backoff": 0.0, "suspect": False}
+
+    def add_worker(self):
+        """Grow the table by one (a membership JOIN); returns the new
+        worker's index."""
+        with self._lock:
+            self._state.append(self._fresh())
+            return len(self._state) - 1
 
     def _jitter(self, base):
         """base + up to 50% random jitter: fleet-wide probes/retries must
@@ -108,6 +121,16 @@ class LivenessTracker:
         if flipped:
             self.metrics.inc("workers_quarantined")
         return flipped
+
+    def clear_suspect(self, i):
+        """Absolution (a fresh JOIN passed the known-answer challenge):
+        drop the sticky flag and close the breaker."""
+        with self._lock:
+            s = self._state[i]
+            s["suspect"] = False
+            s["open"] = False
+            s["failures"] = 0
+            s["probe_backoff"] = 0.0
 
     def is_suspect(self, i):
         with self._lock:
@@ -170,3 +193,14 @@ class LivenessTracker:
 
     def due_probes(self):
         return [i for i in range(len(self._state)) if self.probe_due(i)]
+
+    def force_probe(self, i=None):
+        """Make the next probe_due() True immediately (tests, an operator
+        'I restarted it, re-admit now' path)."""
+        with self._lock:
+            for s in (self._state if i is None else [self._state[i]]):
+                s["next_probe"] = 0.0
+
+    def snapshot(self):
+        with self._lock:
+            return [dict(s) for s in self._state]

@@ -27,12 +27,25 @@ The wire protocol is the JAX package's (runtime/protocol.py), so the JAX
 package's dispatcher drives this worker too. Launched with --store DIR,
 the worker serves its artifact store (bucket keys, checkpoints, proofs)
 to peers over STORE_FETCH and STORE_LIST (store/remote.py), so a fresh
-host pulls a warm peer's keys instead of rebuilding them. Tags of planes
-the port has not ported (ROSTER, JOIN, LEAVE, METRICS_FETCH, LOG_FETCH,
+host pulls a warm peer's keys instead of rebuilding them.
+
+Membership (runtime/membership.py): a worker started with `--join
+host:port` binds, announces itself to the dispatcher's membership server,
+adopts the returned index, epoch and roster, and serves; then it
+warm-rejoins in the background (bucket keys pulled from the roster's
+store peers) and reports the stats, which HEALTH shows under `warm`.
+ROSTER pushes advance its epoch (never backwards), and an FFT_INIT planned
+against another epoch is refused (ERR "stale epoch", counted as
+`stale_epoch`). `--faults RULES` arms the data plane of runtime/faults.py
+(the JAX worker's DPT_FAULTS): a `corrupt:at=data` rule perturbs this
+worker's own MSM / NTT / FFT2 / EVAL results before they are framed.
+Tags of planes the port has not ported (METRICS_FETCH, LOG_FETCH,
 PROFILE) answer ERR "<TAG> not ported".
 
 Run: python -m distributed_plonk_tpu_torch.runtime.worker <index>
-    <network.json> [--device cuda|cpu] [--store DIR]
+    <network.json> [--device cuda|cpu] [--store DIR] [--faults RULES]
+  or python -m distributed_plonk_tpu_torch.runtime.worker --join H:P
+    [--listen H:P] [--device cuda|cpu] [--store DIR] [--faults RULES]
 """
 
 import json
@@ -47,12 +60,14 @@ import numpy as np
 import torch
 
 from . import native, protocol
+from .faults import FaultInjector, parse_rules
 from .netconfig import NetworkConfig
 from .torch_stages import StageKernels
 from ..backend import _build
 from ..backend.torch_backend import TorchBackend
 from ..constants import R_MOD, FR_GENERATOR
 from ..fields import fr_inv, fr_root_of_unity
+from ..obs import log as olog
 from ..poly import Domain, poly_eval
 from ..trace import NULL_TRACER, Tracer
 
@@ -62,8 +77,7 @@ from ..trace import NULL_TRACER, Tracer
 _TRACE_CAP = 32
 
 # wire tags of planes the port has not ported yet (ROADMAP Queue 1)
-NOT_PORTED = frozenset((protocol.ROSTER, protocol.JOIN, protocol.LEAVE,
-                        protocol.METRICS_FETCH, protocol.LOG_FETCH,
+NOT_PORTED = frozenset((protocol.METRICS_FETCH, protocol.LOG_FETCH,
                         protocol.PROFILE))
 
 
@@ -107,12 +121,22 @@ class FftTask:
 
 
 class WorkerState:
-    def __init__(self, backend, stages, config=None, me=0, store=None):
+    def __init__(self, backend, stages, config=None, me=0, store=None,
+                 faults=None):
         self.backend = backend
         self.stages = stages
         self.config = config
         self.me = me
         self.store = store   # store.ArtifactStore served over STORE_FETCH
+        # membership-roster version this worker last adopted (0 = static
+        # fleet / never joined): FFT_INIT frames planned against another
+        # epoch are refused, and ROSTER pushes advance it
+        self.epoch = 0
+        # the data plane of runtime/faults.py (--faults): perturbs OUR
+        # computed results before framing; None is the plain path
+        self.faults = faults
+        self.sdc_injected = 0
+        self.warm = None     # warm-rejoin stats (store/remote.warm_sync)
         self.started = time.monotonic()
         self.base_sets = {}  # set_id -> bases (a worker can adopt ranges)
         self.lock = threading.Lock()
@@ -178,6 +202,14 @@ class WorkerState:
                 "now": time.time(),
                 "traces": len(self.traces),
                 "launches": dict(_build.LAUNCHES),
+                "epoch": self.epoch,
+                # data-plane chaos visibility (0 without --faults)
+                "sdc_injected": self.sdc_injected,
+                # warm-rejoin stats of a --join worker (None until its
+                # peer sync finished)
+                "warm": self.warm,
+                # this process's peak device memory (MiB; 0 on the CPU)
+                "peak_mib": _peak_mib(self.backend.device),
             }
 
     def peer(self, p):
@@ -216,6 +248,24 @@ class WorkerState:
                     self.drop_peer(p)
                     if attempt:
                         raise
+
+
+def _peak_mib(dev):
+    if dev.type != "cuda":
+        return 0.0
+    return round(torch.cuda.max_memory_allocated(dev) / 2**20, 1)
+
+
+def _sdc_due(state, tag):
+    """True when the data-plane chaos should corrupt the result just
+    computed for `tag` (runtime/faults.py, at=data)."""
+    if state.faults is None or not state.faults.on_data(state.me, tag):
+        return False
+    with state.lock:
+        state.sdc_injected += 1
+    olog.emit("worker", "sdc_injected", level="warn", worker=state.me,
+              tag=protocol.tag_name(tag))
+    return True
 
 
 # sum_j row[j] * base^j — exactly dense-poly Horner evaluation
@@ -383,6 +433,11 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
             return None
         with tracer.span("msm"):
             result = state.backend.msm(bases, scalars)
+        if _sdc_due(state, protocol.MSM):
+            # a WELL-FORMED wrong answer (on the curve, in the subgroup):
+            # only duplicate execution can catch it
+            from .. import curve as C
+            result = C.g1_add_affine(result, C.G1_GEN)
         conn.send(protocol.OK, protocol.encode_point(result))
     elif tag == protocol.NTT:
         values, inverse, coset = protocol.decode_ntt_request(payload)
@@ -397,13 +452,29 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                 out = state.backend.coset_fft(domain, values)
             else:
                 out = state.backend.fft(domain, values)
+        if _sdc_due(state, protocol.NTT):
+            out = list(out)
+            out[0] = (out[0] + 1) % R_MOD  # one flipped field element
         conn.send(protocol.OK,
                   protocol.encode_scalar_matrix(protocol.ints_to_matrix(out)))
     elif tag == protocol.FFT_INIT:
         (task_id, inverse, coset, n, r, c, rs, re,
-         col_ranges, _epoch, keep_raw) = protocol.decode_fft_init(payload)
+         col_ranges, epoch, keep_raw) = protocol.decode_fft_init(payload)
         now = time.monotonic()
         with state.lock:
+            if epoch and state.epoch and epoch != state.epoch:
+                # a roster mismatch in EITHER direction is unservable: an
+                # older plan's col_ranges no longer match the fleet, and a
+                # newer one names peers this worker's table lacks (it
+                # missed a push); the dispatcher re-pushes the roster and
+                # replans (epoch 0 on either side: no membership plane,
+                # always accepted)
+                state.counters["stale_epoch"] = \
+                    state.counters.get("stale_epoch", 0) + 1
+                conn.send(protocol.ERR,
+                          b"stale epoch: frame %d, roster %d"
+                          % (epoch, state.epoch))
+                return None
             _evict_fft_tasks(state.fft_tasks, _FFT_TASK_CAP, now)
             state.fft_tasks[task_id] = FftTask(
                 inverse, coset, n, r, c, rs, re, col_ranges, state.me,
@@ -488,6 +559,12 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                     staged = state.stages.stage2_panel(task, task.cols)
                 task.result = protocol.encode_scalar_matrix(
                     staged.reshape(16, staged.shape[1] * staged.shape[2]))
+            if task.result and _sdc_due(state, protocol.FFT2):
+                # one element perturbed IN the cached buffer: retries and
+                # the integrity partials see the same wrong result
+                v = (protocol.decode_scalar(task.result) + 1) % R_MOD
+                task.result = protocol.encode_scalar(v) \
+                    + task.result[protocol.FR_BYTES:]
             task.done_at = time.monotonic()
         if check_point is not None and task.result \
                 and (task.keep_raw or task.re <= task.rs):
@@ -505,6 +582,8 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         point, chunk = protocol.decode_eval_request(payload)
         with tracer.span("eval"):
             val = state.backend.eval_h(state.backend.lift(chunk), point)
+        if _sdc_due(state, protocol.EVAL):
+            val = (val + 1) % R_MOD
         conn.send(protocol.OK, protocol.encode_scalar(val))
     elif tag == protocol.STATS:
         with state.lock:
@@ -512,6 +591,26 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         conn.send(protocol.OK, json.dumps(snap).encode())
     elif tag == protocol.HEALTH:
         conn.send(protocol.OK, json.dumps(state.health()).encode())
+    elif tag == protocol.ROSTER:
+        # membership push: adopt the epoch table iff it is NEWER (epochs
+        # only move forward), and drop every cached peer stream: indices
+        # are stable, but a rejoin means the old socket to that index is
+        # dead
+        req = protocol.decode_json(payload)
+        new_epoch = int(req.get("epoch", 0))
+        adopted = False
+        with state.lock:
+            if new_epoch > state.epoch:
+                state.epoch = new_epoch
+                state.config = NetworkConfig(req.get("workers", []))
+                adopted = True
+        if adopted:
+            with state.peer_lock:
+                stale = list(state.peers)
+            for p in stale:
+                state.drop_peer(p)
+        conn.send(protocol.OK, json.dumps(
+            {"epoch": state.epoch, "adopted": adopted}).encode())
     elif tag == protocol.TRACE_DUMP:
         # fetch-and-forget one trace's worker-side spans; an unknown id
         # answers {}
@@ -566,20 +665,74 @@ def _run_server(listener, state, ready_event=None):
     listener.close()
 
 
-def serve(index, config, device=None, ready_event=None, store_dir=None):
-    """Static-fleet daemon on `device` (None: the card, raising without
-    one; "cpu" runs the kernels' plain versions), serving the artifact
-    store at `store_dir` over STORE_FETCH/STORE_LIST when given."""
-    host, port = config.workers[index]
+def _make_state(device, store_dir, faults, **kw):
+    """The worker's backend on `device` (None: the card, raising without
+    one; "cpu" runs the kernels' plain versions), its artifact store at
+    `store_dir` (served over STORE_FETCH/STORE_LIST) and its data-plane
+    rules (`faults`: the text form of runtime/faults.py, or None)."""
     backend = TorchBackend(device)
     stages = StageKernels(backend.device)
     store = None
     if store_dir is not None:
         from ..store import ArtifactStore
         store = ArtifactStore(store_dir)
+    injector = FaultInjector(parse_rules(faults)) if faults else None
+    return WorkerState(backend, stages, store=store, faults=injector, **kw)
+
+
+def serve(index, config, device=None, ready_event=None, store_dir=None,
+          faults=None):
+    """Static-fleet daemon: index and config fixed at startup (epoch 0)."""
+    host, port = config.workers[index]
+    state = _make_state(device, store_dir, faults, config=config, me=index)
     listener = native.Listener(host, port)
-    state = WorkerState(backend, stages, config=config, me=index,
-                        store=store)
+    _run_server(listener, state, ready_event=ready_event)
+
+
+def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
+                 store_dir=None, faults=None, ready_event=None):
+    """Dynamic-membership daemon (`--join host:port`): build the backend
+    (a worker that cannot reach its device raises before it joins), bind
+    (port 0 = ephemeral), announce to the membership server, adopt the
+    returned index, epoch and roster, and serve. Then warm-rejoin in the
+    background: pull the roster's store peers' `bucket:` artifacts
+    (store/remote.warm_sync) so a replacement worker finds its keys
+    without a rebuild, and report the stats (JOIN phase=ready; HEALTH's
+    `warm`). The worker is schedulable from the JOIN reply; the sync only
+    speeds up first touches, it gates nothing."""
+    from . import membership
+    state = _make_state(device, store_dir, faults)
+    host, port = listen_addr
+    listener = native.Listener(host, port)
+    port = port or native.listener_port(listener)
+    reply = membership.join_fleet(join_addr[0], join_addr[1], host, port,
+                                  store=store_dir is not None)
+    with state.lock:
+        state.config = NetworkConfig(reply["workers"])
+        state.me = int(reply["index"])
+        state.epoch = int(reply["epoch"])
+    olog.emit("worker", "joined", worker=state.me, port=port,
+              epoch=state.epoch, device=str(state.backend.device))
+
+    def warm_sync():
+        from ..store import remote as store_remote
+        me = f"{host}:{port}"
+        peers = [tuple(a.rsplit(":", 1)) for a in reply.get("stores", [])
+                 if a != me]
+        stats = {"warm_rejoin_s": 0.0, "artifacts": 0, "peers": 0,
+                 "errors": 0}
+        if state.store is not None and peers:
+            stats = store_remote.warm_sync(
+                state.store, [(h, int(p)) for h, p in peers])
+        state.warm = stats
+        olog.emit("worker", "warm_rejoin", worker=state.me, **stats)
+        if state.store is not None:
+            # a storeless joiner has nothing to sync: a report would count
+            # a zero-length warm rejoin
+            membership.report_ready(join_addr[0], join_addr[1], host,
+                                    port, stats)
+
+    threading.Thread(target=warm_sync, daemon=True).start()
     _run_server(listener, state, ready_event=ready_event)
 
 
@@ -591,15 +744,34 @@ def _pop_flag(argv, flag):
     return argv[i + 1], argv[:i] + argv[i + 2:]
 
 
+def _parse_hostport(s):
+    h, _, p = s.rpartition(":")
+    return h or "127.0.0.1", int(p)
+
+
+USAGE = ("usage: python -m distributed_plonk_tpu_torch.runtime.worker "
+         "(<index> <network.json> | --join H:P [--listen H:P]) "
+         "[--device cuda|cpu] [--store DIR] [--faults RULES]")
+
+
 def main(argv):
     device, argv = _pop_flag(argv, "--device")
     store_dir, argv = _pop_flag(argv, "--store")
-    if len(argv) != 2:
-        raise SystemExit("usage: python -m distributed_plonk_tpu_torch."
-                         "runtime.worker <index> <network.json> "
-                         "[--device cuda|cpu] [--store DIR]")
+    faults, argv = _pop_flag(argv, "--faults")
+    join, argv = _pop_flag(argv, "--join")
+    listen, argv = _pop_flag(argv, "--listen")
+    if join is not None:
+        if argv:
+            raise SystemExit(USAGE)
+        serve_joined(_parse_hostport(join),
+                     _parse_hostport(listen) if listen
+                     else ("127.0.0.1", 0),
+                     device, store_dir=store_dir, faults=faults)
+        return
+    if len(argv) != 2 or listen is not None:
+        raise SystemExit(USAGE)
     serve(int(argv[0]), NetworkConfig.load(argv[1]), device,
-          store_dir=store_dir)
+          store_dir=store_dir, faults=faults)
 
 
 if __name__ == "__main__":

@@ -17,11 +17,14 @@ copy of the JAX package's service/, proving on the card):
                                     worker death, verify-before-serve)
         -> journal.JobJournal      (write-ahead job journal: restart recovery)
         -> metrics.Metrics         (counters + latency histograms, JSON)
+        -> autoscale.Autoscaler    (closed loop: queue and fleet sensors
+                                    drive a WorkerSupervisor, the lease
+                                    capacity and pressure sheds)
 
 The wire control plane rides runtime/protocol.py's framed transport, with
 the JAX package's tags and payloads. Entry point: `python -m
 distributed_plonk_tpu_torch.service` (the counterpart of the JAX package's
-scripts/serve.py). Not ported: service/autoscale.py.
+scripts/serve.py).
 """
 
 from .jobs import Job, JobSpec, build_circuit, build_bucket_keys, shape_key

@@ -101,19 +101,57 @@ class SubmeshLeaser:
     Contiguity: leases are CONTIGUOUS runs of the enumeration order,
     because a sharded submesh wants neighboring devices; the free list
     keeps that order so releases restore contiguity.
+
+    Capacity (the autoscaler's batch-versus-flagship actuator): slots past
+    the capacity are held in a reserve instead of the free list.
+    Shrinking never revokes a granted lease, it only withholds free
+    slots; a release past capacity parks its slots in the reserve until
+    capacity grows again.
     """
 
     def __init__(self, devices):
         self._all = list(devices)
         self._free = list(range(len(self._all)))   # free slot positions
+        self._capacity = len(self._all)
+        self._reserved = []
         self._cond = threading.Condition()
 
     def total(self):
         return len(self._all)
 
+    def capacity(self):
+        with self._cond:
+            return self._capacity
+
     def free_count(self):
         with self._cond:
             return len(self._free)
+
+    def set_capacity(self, n):
+        """Resize the leasable pool to n slots (clamped to [1, total]).
+        Growing returns reserved slots to the free list at once; shrinking
+        withholds FREE slots only (highest position first, so low-position
+        contiguous runs survive). Returns the applied capacity."""
+        with self._cond:
+            self._capacity = max(1, min(int(n), len(self._all)))
+            self._rebalance_locked()
+            self._cond.notify_all()
+            return self._capacity
+
+    def _rebalance_locked(self):
+        """Move slots between the free list and the reserve to honour the
+        capacity: leased slots count against it, so free may hold up to
+        capacity - leased."""
+        leased = len(self._all) - len(self._free) - len(self._reserved)
+        allowed_free = max(0, self._capacity - leased)
+        if len(self._free) > allowed_free:
+            self._free.sort()
+            while len(self._free) > allowed_free:
+                self._reserved.append(self._free.pop())
+        elif len(self._free) < allowed_free and self._reserved:
+            self._reserved.sort()
+            while len(self._free) < allowed_free and self._reserved:
+                self._free.append(self._reserved.pop(0))
 
     def _grab_locked(self, k):
         """Best contiguous run of k free slots; falls back to any k free
@@ -136,7 +174,7 @@ class SubmeshLeaser:
         cannot satisfy it right now). k is clamped to the pool size."""
         deadline = None
         with self._cond:
-            k = max(1, min(k, len(self._all)))
+            k = max(1, min(k, self._capacity))
             while len(self._free) < k:
                 if timeout_s is not None and timeout_s <= 0:
                     return None
@@ -159,6 +197,7 @@ class SubmeshLeaser:
                 return
             lease._released = True
             self._free.extend(lease.slots)
+            self._rebalance_locked()
             self._cond.notify_all()
 
 

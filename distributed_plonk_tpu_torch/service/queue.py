@@ -47,6 +47,16 @@ class JobQueue:
         with self._lock:
             return len(self._items)
 
+    def depth_by_class(self):
+        """{slo_class: queued count}: the autoscaler's class-mix sensor.
+        Classless jobs count as standard."""
+        with self._lock:
+            out = {}
+            for _key, job in self._items:
+                cls = getattr(job, "slo", "standard")
+                out[cls] = out.get(cls, 0) + 1
+            return out
+
     def submit(self, job, force=False):
         """Enqueue or raise Rejected (queue_full | draining). force=True
         bypasses the depth cap — journal recovery re-enqueues every job

@@ -101,6 +101,31 @@ class BucketCache:
         self._buckets = OrderedDict()
         self._latches = {}
 
+    def add_peer(self, host, port):
+        """Register one STORE_FETCH peer at runtime (idempotent): the
+        membership plane's discovery path, a worker that JOINs the fleet
+        advertising a store becomes a key-fetch tier at once
+        (ProofService.attach_membership wires this up)."""
+        pair = (host, int(port))
+        with self._lock:
+            if pair in self.peers:
+                return False
+            self.peers.append(pair)
+        self.metrics.inc("bucket_peers_added")
+        return True
+
+    def remove_peer(self, host, port):
+        """Drop one STORE_FETCH peer (a member LEAVEd the fleet): a later
+        cold miss would otherwise spend the peer timeout dialing the
+        decommissioned address before the build tier."""
+        pair = (host, int(port))
+        with self._lock:
+            if pair not in self.peers:
+                return False
+            self.peers.remove(pair)
+        self.metrics.inc("bucket_peers_removed")
+        return True
+
     def get(self, spec):
         """Resources for the spec's shape, loading/building on first use."""
         return self.get_with_source(spec)[0]

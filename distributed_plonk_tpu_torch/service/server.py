@@ -27,11 +27,14 @@ job_keys, sheds expired TTLs with a queryable verdict, and drains
 gracefully on SIGTERM (the service entry point, __main__.py). `crash()`
 is the in-process SIGKILL analog the restart tests use.
 
+Elastic fleets: `attach_membership` registers a dispatcher membership's
+store-serving members as bucket-cache peers, and `attach_autoscaler`
+arms the closed-loop autoscaler (service/autoscale.py) over a
+WorkerSupervisor.
+
 Not ported (each raises NotImplementedError where the API reaches it):
-the membership plane (attach_membership), fleet metrics and profiles
-(attach_fleet, profile_fleet_worker), the autoscaler
-(attach_autoscaler), and the kernel-calibration pickup (`autotune`
-reads {"source": "not_ported"}).
+fleet metrics and profiles (attach_fleet, profile_fleet_worker), and the
+kernel-calibration pickup (`autotune` reads {"source": "not_ported"}).
 """
 
 import os
@@ -154,23 +157,45 @@ class ProofService:
         self._submit_lock = threading.Lock()
         self._listener = None
         self._stopped = threading.Event()
+        # the dispatcher whose fleet a membership registry describes
+        # (attach_membership): the autoscaler's fleet sensor reads its
+        # liveness tracker
+        self.fleet_dispatcher = None
+        # closed-loop autoscaler (service/autoscale.py): attach_autoscaler
+        # sets it; None is off
+        self.autoscaler = None
 
     def attach_membership(self, registry):
-        """Bucket-cache peers from the membership plane
-        (runtime/membership.py): not ported."""
-        raise NotImplementedError("attach_membership: membership plane "
-                                  "not ported")
+        """Discover the fleet's store-serving members as bucket-cache peers
+        (runtime/membership.py): every current store member is registered
+        now, every later JOIN that advertises a store as it lands, and a
+        LEAVEd member is dropped."""
+        def _on_change(ev):
+            if ev.get("event") == "join" and ev.get("store"):
+                self.buckets.add_peer(ev["host"], ev["port"])
+            elif ev.get("event") == "leave" and "host" in ev:
+                self.buckets.remove_peer(ev["host"], ev["port"])
+        registry.subscribe(_on_change)
+        for host, port in registry.store_peers():
+            self.buckets.add_peer(host, port)
+        self.fleet_dispatcher = registry.d
+        return self
 
     def attach_fleet(self, dispatcher, interval_s=None, start=True):
         """Fleet metrics scraping (obs/fleet.py): not ported."""
         raise NotImplementedError("attach_fleet: fleet observability "
                                   "not ported")
 
-    def attach_autoscaler(self, supervisor=None, mode=None, **kw):
-        """The closed-loop autoscaler (service/autoscale.py): not
-        ported."""
-        raise NotImplementedError("attach_autoscaler: autoscaler not "
-                                  "ported")
+    def attach_autoscaler(self, supervisor=None, mode="0", **kw):
+        """Arm the closed-loop autoscaler (service/autoscale.py): mode "0"
+        (the default) attaches nothing and returns None; "dry" runs the
+        control loop and records decisions without one actuator call;
+        "1" actuates (supervisor add_slot / retire_slot, submesh lease
+        resize, pressure sheds). Pass the WorkerSupervisor that owns the
+        fleet's worker processes to enable worker scaling; without one
+        the controller still resizes leases and sheds."""
+        from . import autoscale as AS
+        return AS.attach(self, supervisor=supervisor, mode=mode, **kw)
 
     def profile_fleet_worker(self, worker=0, duration_ms=None,
                              kind="auto"):
@@ -579,6 +604,8 @@ class ProofService:
             pass
 
     def shutdown(self):
+        if self.autoscaler is not None:
+            self.autoscaler.close()
         self.scheduler.stop()
         self.pool.shutdown()
         if self._listener is not None:
@@ -810,9 +837,10 @@ class ObsServer:
         /trace/<job_id>  the job's merged timeline as Chrome trace-event
                          JSON (load in chrome://tracing / Perfetto);
                          ?raw=1 returns the lossless merged dump instead
+        /autoscale       the attached autoscaler's state() (404 when off)
 
-    The JAX package's /fleet, /autoscale and /profile endpoints answer
-    404 "not ported". A separate listener from the proof-service wire
+    The JAX package's /fleet and /profile endpoints answer 404 "not
+    ported". A separate listener from the proof-service wire
     plane: scrapers and dashboards must not compete with SUBMIT/RESULT
     frames, and plain HTTP means curl/Prometheus need no custom codec."""
 
@@ -862,7 +890,7 @@ def _query_params(query):
             urllib.parse.parse_qs(query, keep_blank_values=True).items()}
 
 
-_NOT_PORTED_PATHS = ("/fleet", "/autoscale", "/profile")
+_NOT_PORTED_PATHS = ("/fleet", "/profile")
 
 
 def _obs_route(svc, path):
@@ -895,6 +923,13 @@ def _obs_route(svc, path):
             "device": str(svc.device),
         }
         return 200, "application/json", protocol.encode_json(body)
+    if path == "/autoscale":
+        asc = svc.autoscaler
+        if asc is None:
+            return 404, "application/json", protocol.encode_json(
+                {"error": "autoscaler off (ProofService.attach_autoscaler "
+                          "with mode dry or 1)"})
+        return 200, "application/json", protocol.encode_json(asc.state())
     if path == "/logs":
         q = _query_params(query)
         out = olog.fetch(trace_id=q.get("trace_id") or None,
@@ -916,4 +951,5 @@ def _obs_route(svc, path):
             {"error": f"{path} not ported"})
     return 404, "application/json", protocol.encode_json(
         {"error": f"unknown path {path!r}",
-         "endpoints": ["/metrics", "/healthz", "/logs", "/trace/<job_id>"]})
+         "endpoints": ["/metrics", "/healthz", "/autoscale", "/logs",
+                       "/trace/<job_id>"]})

@@ -1,6 +1,5 @@
 """Cross-host artifact fetch: pull store blobs from a serving peer (a copy
-of the JAX package's store/remote.py, minus its JAX compile-cache files
-and the membership plane's warm-rejoin sync).
+of the JAX package's store/remote.py, minus its JAX compile-cache files).
 
 The client side of the STORE_FETCH wire tag (runtime/protocol.py): a fresh
 or replacement host asks a peer that already holds an artifact (bucket
@@ -17,9 +16,15 @@ Servers: the proof service answers STORE_FETCH and STORE_LIST when started
 with a store (service/server.py); runtime workers answer them when
 launched with --store (runtime/worker.py). The wire format is the JAX
 package's, so either package's client fetches from either's server.
+
+Warm rejoin (`warm_sync`): a worker that JOINs the fleet with a store
+pulls every missing `WARM_SYNC_PREFIXES` artifact from the roster's
+store-serving peers, so a replacement finds its bucket keys without a
+rebuild.
 """
 
 import hashlib
+import time
 
 from ..runtime import native, protocol
 from ..runtime.health import NullMetrics
@@ -129,3 +134,38 @@ def list_keys(host, port, prefix="", timeout_ms=10000):
             f"peer {host}:{port} cannot list: "
             f"{protocol.decode_json(rpayload).get('reason')}")
     return protocol.decode_json(rpayload).get("keys", [])
+
+
+# artifact-key prefixes a joining worker pulls from roster peers: bucket
+# keys carry the SRS and the proving/verifying keys (keycache.py layout),
+# the expensive state to rebuild. Checkpoints and proofs stay
+# fetch-on-demand (they are job-scoped, not shape-scoped).
+WARM_SYNC_PREFIXES = ("bucket:",)
+
+
+def warm_sync(store, peers, prefixes=WARM_SYNC_PREFIXES, timeout_ms=10000):
+    """Warm-rejoin sync: pull every missing `prefixes` artifact from each
+    peer in order. Per-peer and per-key failures are skipped: the sync
+    speeds a rejoin up, it never gates it. Returns the stats dict
+    ({warm_rejoin_s, artifacts, peers, errors}) of the JOIN phase=ready
+    report."""
+    t0 = time.monotonic()
+    prefixes = tuple(prefixes)
+    stats = {"artifacts": 0, "peers": 0, "errors": 0}
+    have = set(store.keys())
+    for host, port in peers:
+        try:
+            keys = list_keys(host, port, timeout_ms=timeout_ms)
+        except (FetchError, ConnectionError, OSError):
+            stats["errors"] += 1
+            continue
+        stats["peers"] += 1
+        for key in keys:
+            if key in have or not key.startswith(prefixes):
+                continue
+            if fetch_into(store, host, port, key,
+                          timeout_ms=timeout_ms) is not None:
+                have.add(key)
+                stats["artifacts"] += 1
+    stats["warm_rejoin_s"] = round(time.monotonic() - t0, 6)
+    return stats

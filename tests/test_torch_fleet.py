@@ -11,8 +11,10 @@ every kernel's plain torch version) driven by the port's Dispatcher.
   FFT2, FFT_EXCHANGE, MSM and EVAL;
 - the JAX package's Dispatcher drives the same workers (the wire protocol
   is shared): its fft_dist and msm equal the oracle;
-- the tags of planes the port has not ported answer ERR "... not ported",
-  and the dispatcher methods that need them raise NotImplementedError;
+- the tags of planes the port has not ported (METRICS_FETCH, LOG_FETCH,
+  PROFILE) answer ERR "... not ported", and the dispatcher methods that
+  need them raise NotImplementedError (the membership plane's ROSTER,
+  JOIN and LEAVE are tested in test_torch_membership.py);
   STORE_FETCH and STORE_LIST on a worker without --store answer the
   JAX worker's "no store" ERR.
 
@@ -221,8 +223,7 @@ def test_jax_dispatcher_drives_port_workers(fleet):
         d.pool.shutdown()
 
 
-@pytest.mark.parametrize("tag", ["ROSTER", "JOIN", "LEAVE",
-                                 "METRICS_FETCH", "LOG_FETCH", "PROFILE"])
+@pytest.mark.parametrize("tag", ["METRICS_FETCH", "LOG_FETCH", "PROFILE"])
 def test_later_planes_answer_not_ported(fleet, tag):
     with pytest.raises(RuntimeError, match="%s not ported" % tag):
         fleet.workers[0].call(getattr(protocol, tag),
@@ -239,8 +240,7 @@ def test_store_plane_without_a_store_answers_err(fleet, tag):
                               protocol.encode_json({"key": "bucket:x"}))
 
 
-@pytest.mark.parametrize("method", ["enable_membership", "fleet_metrics",
-                                    "profile_worker"])
+@pytest.mark.parametrize("method", ["fleet_metrics", "profile_worker"])
 def test_later_planes_raise_in_the_dispatcher(fleet, method):
     args = (0,) if method == "profile_worker" else ()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,6 +13,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import distributed_plonk_tpu_torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -146,3 +148,22 @@ def test_no_module_of_the_port_reads_the_environment():
     assert {p.parent.name for p in PORT.rglob("*.py")} >= {"parallel",
                                                             "circuits"}
     assert bad == []
+
+
+@pytest.mark.parametrize("rel", ["runtime/membership.py",
+                                 "runtime/supervisor.py",
+                                 "service/autoscale.py"])
+def test_the_elastic_fleet_modules_are_scanned(rel):
+    """The elastic fleet's modules exist and are among the files the
+    scans above read: no jax, nothing of the JAX package, no
+    environment read (their settings are arguments and constants)."""
+    path = PORT / rel
+    assert path in _sources()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names] + \
+        [node.module or "" for node in ast.walk(tree)
+         if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert names and not any(_forbidden(n) for n in names)
+    assert not any(isinstance(node, ast.Attribute) and node.attr in (
+        "environ", "getenv") for node in ast.walk(tree))

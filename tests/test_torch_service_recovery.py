@@ -113,12 +113,6 @@ def test_corrupted_proof_is_blocked_and_reproved(tmp_path):
         svc.shutdown()
 
 
-@pytest.mark.parametrize("plane", ["wire", "proc", "data"])
-def test_unported_fault_planes_raise(plane):
-    with pytest.raises(ValueError, match="not ported"):
-        Rule("kill", tag=1, plane=plane)
-
-
 def test_rule_parse_reads_the_jax_text_form():
     assert Rule.parse("kill:at=journal:tag=ROUND2").plane == "journal"
     assert Rule.parse("kill:at=journal:tag=ROUND2").tag == "ROUND2"
@@ -128,8 +122,8 @@ def test_rule_parse_reads_the_jax_text_form():
 def test_obs_server_serves_metrics_health_logs_and_traces(tmp_path):
     """ObsServer over a port service: /metrics (Prometheus text),
     /healthz, /logs, /trace/<job_id> (Chrome trace events, the job's
-    queue-wait span with its placement attrs), and 404 for the planes
-    not ported."""
+    queue-wait span with its placement attrs), /autoscale (the attached
+    autoscaler's state), and 404 for the planes not ported."""
     import json
     import urllib.error
     import urllib.request
@@ -162,7 +156,15 @@ def test_obs_server_serves_metrics_health_logs_and_traces(tmp_path):
         assert queued[0]["args"]["placement"] == "pool"
         assert {"round1", "round5"} <= {e.get("name") for e in events}
         assert get("/logs")[0] == 200
-        for path in ("/fleet", "/autoscale", "/profile/x"):
+        assert get("/autoscale")[0] == 404      # off until attached
+        asc = svc.attach_autoscaler(mode="dry", start=False)
+        asc.tick()
+        code, body = get("/autoscale")
+        state = json.loads(body)
+        assert code == 200 and state["mode"] == "dry"
+        assert state["ticks"] == 1 and state["queue"]["depth"] == 0
+        assert state["bounds"] == {"min_workers": 1, "max_workers": 8}
+        for path in ("/fleet", "/profile/x"):
             code, body = get(path)
             assert code == 404 and b"not ported" in body
     finally:
