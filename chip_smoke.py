@@ -6,7 +6,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. Set-up: the card's name and power limit (nvidia-smi), the kernels'
    build from csrc/ (nvcc, all sources in parallel), and, while nvcc
-   runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF).
+   runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF)
+   and phase 8's v2 circuit.
 2. Kernel parity: each kernel entry against its plain torch version on
    the card, on seeded inputs at the main path's shapes, with tolerance 0
    (every value is an integer in canonical form, every addition in a
@@ -80,10 +81,18 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    seconds, the workers' span seconds, the requests each worker served
    (every worker must serve MSM and EVAL in both proves, FFT1 and FFT2
    in the sharded one, NTT in the other) and the kernel launches per
-   fleet prove. A worker that exits, an ERR reply from a worker (the
-   dispatcher raises it), or any recovery by the dispatcher (a
-   reconnect, an adopted range, a rerouted NTT or evaluation, a replan,
-   a quarantine), fails the phase.
+   fleet prove. Then the observability plane over the same workers: a
+   third, sharded v1 fleet prove (equal to the fixture) with a PROFILE
+   capture of worker 0 armed over it (torch.profiler on the card, after
+   a 50 ms capture that pays the profiler's start-up), whose gzipped
+   Chrome trace must name kernels of all four ports (K1 mont_mul_kernel,
+   K2 ntt_pass_kernel, K3 digits/chunk/tree_kernel, K4 msm_tail or
+   add_*_kernel); a METRICS_FETCH scrape of the four workers (served_*,
+   worker_*_s, and mfu_* gauges against this card's peak, each in
+   (0, 100]); a LOG_FETCH. A worker that exits, an ERR reply from a
+   worker (the dispatcher raises it), or any recovery by the dispatcher
+   (a reconnect, an adopted range, a rerouted NTT or evaluation, a
+   replan, a quarantine), fails the phase.
 12. Elastic (elastic_checks): the v1 workload through RemoteBackend over
    port workers spawned on this card by the port's WorkerSupervisor and
    joined through the dispatcher's membership server: two workers; two
@@ -95,9 +104,12 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    known-answer challenge, while a standing liar fails it; then a
    ProofService proving through a fresh one-worker fleet with the
    actuating autoscaler: three v1 jobs scale it up and, served, equal
-   their direct proves; idle, it retires back to one worker. Every proof
-   equals the fixture; every worker of a step launches every kernel of
-   the path (HEALTH `launches`).
+   their direct proves; then the service attaches the fleet
+   (attach_fleet), serves /fleet over HTTP, and the autoscaler's mfu_pct
+   sensor reads the workers' mean kernel share, in (0, 100]; idle, it
+   retires back to one worker. Every proof equals the fixture; every
+   worker of a step launches every kernel of the path (HEALTH
+   `launches`).
 13. Service: the port's ProofService on this card over TCP (a
    ServiceClient), with two pool workers, a store, a journal, chaos on
    and four slots of cuda:0 (so the mesh class leases a 2-slot submesh):
@@ -116,7 +128,19 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    from disk. Every kernel entry must launch in the phase; per-job wait
    and run seconds, key-build seconds and the phase's peak memory are
    printed beside the card's name and power limit.
-14. Device time: torch.profiler's CUDA kernel times for one launch of
+14. Observe and calibrate: the card's own integer peak (SMs x 64 IMAD
+   per clock x the maximum SM clock nvidia-smi reports); a traced warm
+   prove of v1 and of v2, whose kernel events fold into the
+   kernel_<stage>_gflops / mfu_<stage>_pct gauges (Metrics.
+   observe_kernels), each of the 8 stages present and each share in
+   (0, 100]; then store/calibration.load_or_run(mode="run") on a fresh
+   store at n = 2^13: the NTT cell at 2^16 (kernel 2's pass split and
+   tile) and the MSM cell at 2^13 (kernel 3's chunk over one prove's
+   commit batches of 5, 1, 5 and 2 handles), each winner beside the
+   default's time and every measured candidate; a second start loads the
+   plan with 0 measurement runs; the v1 proof under the plan equals the
+   fixture. The plan is cleared at the end of the phase.
+15. Device time: torch.profiler's CUDA kernel times for one launch of
    each kernel at its parity shape, and for one more warm prove of the
    2^13 and of the v2 workload (device busy time by kernel and the idle
    share; "not measured" if the profiler records no CUDA events); then
@@ -150,10 +174,15 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 
 import torch
+
+from distributed_plonk_tpu_torch.trace import (FQ_MUL_IMADS, FR_MUL_IMADS,
+                                               IMAD_PER_SM_CLOCK)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "proof_merkle_h32_p1.hex")
@@ -163,12 +192,12 @@ V2_POWERS = (1 << 18) + 3
 # H100 SXM peaks for the bound: HBM 3.35 TB/s (NVIDIA data sheet); 32-bit
 # integer multiply-add, 64 per SM per clock on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput) x 132 SMs
-# x 1.98 GHz boost clock. A 32 x 32 -> 64-bit product is two of them (lo,
-# hi); field additions and data movement are not counted.
+# x 1.98 GHz boost clock. The work model (trace.py, shared with the live
+# kernel gauges): a 32 x 32 -> 64-bit product is two multiply-adds (lo,
+# hi), a Montgomery product FR_MUL_IMADS / FQ_MUL_IMADS; field additions
+# and data movement are not counted.
 HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-FR_MUL_IMADS = 2 * (2 * 8 * 8 + 8)      # word-level CIOS, 8 words
-FQ_MUL_IMADS = 2 * (2 * 12 * 12 + 12)   # 12 words
+IMAD_PER_S = 132 * IMAD_PER_SM_CLOCK[(9, 0)] * 1.98e9
 
 
 def bound_ms(nbytes, imads):
@@ -451,7 +480,7 @@ class SyncCounter:
         self.depth = 0
 
     @contextlib.contextmanager
-    def span(self, name):
+    def span(self, name, **attrs):
         depth, before = self.depth, len(self.caught)
         self.depth += 1
         try:
@@ -462,7 +491,7 @@ class SyncCounter:
                 self.per_round[name] = (self.per_round.get(name, 0)
                                         + len(self.caught) - before)
 
-    def add_event(self, name, dur_s):
+    def add_event(self, name, dur_s=None, ts=None, depth=None, **attrs):
         return None
 
 
@@ -608,6 +637,112 @@ def launch_delta(before, after, label, names):
 
 
 MODES = ((False, False), (True, False), (False, True), (True, True))
+
+
+# the kernels of each TPU kernel's port, by the names a torch.profiler
+# trace gives them (csrc/*.cu)
+KERNEL_NAMES = {
+    "K1 mont_mul": ("mont_mul_kernel",),
+    "K2 ntt": ("ntt_pass_kernel",),
+    "K3 msm_bucket": ("digits_kernel", "chunk_kernel", "tree_kernel"),
+    "K4 curve_add": ("msm_tail_kernel", "add_full_kernel",
+                     "add_mixed_kernel"),
+}
+PROFILE_WINDOW_MS = 8000
+
+
+def check_mfu(gauges, label):
+    """Every published mfu_* gauge lies in (0, 100]; returns them."""
+    mfu = {k: v for k, v in gauges.items() if k.startswith("mfu_")}
+    bad = {k: v for k, v in mfu.items() if not 0 < v <= 100}
+    assert mfu and not bad, (label, bad or "no mfu_* gauge", gauges)
+    return mfu
+
+
+def fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n):
+    """Fleet phase, step (e): a sharded v1 fleet prove with a PROFILE
+    capture of worker 0 armed over it (torch.profiler on the card: the
+    blob must name each of the four kernels' ports), then METRICS_FETCH
+    of the four workers (served_*, worker_*_s and mfu_* in (0, 100]) and
+    LOG_FETCH. The capture's first session in a process pays for the
+    profiler's start-up; a 50 ms capture first makes the armed window
+    cover the prove."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.obs import profiling
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.runtime.dispatcher import RemoteBackend
+    t = time.perf_counter()
+    meta, _ = d.profile_worker(0, duration_ms=50)
+    print("worker 0's first capture (profiler start-up): %.3f s, %s"
+          % (time.perf_counter() - t, json.dumps(meta)))
+    dd = fleet.dispatcher(counters)
+    box = {}
+
+    def arm():
+        box["t0"] = time.perf_counter()
+        box["cap"] = d.profile_worker(0, duration_ms=PROFILE_WINDOW_MS)
+        box["t1"] = time.perf_counter()
+    th = threading.Thread(target=arm)
+    th.start()
+    time.sleep(0.5)
+    before = worker_launches(dd)
+    t = time.perf_counter()
+    proof = prove(random.Random(1), ckt, pk, RemoteBackend(
+        dd, dist_fft_min=n))
+    prove_s = time.perf_counter() - t
+    launch_delta(before, worker_launches(dd), "the profiled fleet prove",
+                 PATH_KERNELS)
+    th.join()
+    assert proof_io.serialize_proof(proof) == golden, "profiled fleet prove"
+    meta, blob = box["cap"]
+    assert meta["format"] == "torch-trace-gz", meta
+    names = profiling.kernel_names(blob)
+    # "void mont_mul_kernel<Fr>(unsigned int*, ...)" -> "mont_mul_kernel"
+    base = {name: name.split("(")[0].split("<")[0].split()[-1]
+            for name in names}
+    found = {k: sum(c for name, c in names.items() if base[name] in v)
+             for k, v in KERNEL_NAMES.items()}
+    print("profiled sharded fleet prove: %.3f s, equal to the fixture; "
+          "worker 0's capture armed %.3f s before it, %d ms window: %s"
+          % (prove_s, t - box["t0"], PROFILE_WINDOW_MS, json.dumps(meta)))
+    ours = collections.Counter()
+    for name, c in names.items():
+        if any(base[name] in v for v in KERNEL_NAMES.values()):
+            ours[base[name]] += c
+    print("  kernel events by port: %s; the port's kernels by name: %s; "
+          "%d events of other kernels (torch)" % (
+              json.dumps(found), json.dumps(dict(sorted(ours.items()))),
+              sum(names.values()) - sum(ours.values())))
+    assert all(found.values()), ("a kernel missing from the profile",
+                                 found, sorted(set(base.values())))
+    entries = d.fleet_metrics()
+    assert len(entries) == 4 and all(e["snapshot"] for e in entries), \
+        entries
+    for e in entries:
+        snap = e["snapshot"]
+        served = {k: v for k, v in snap["counters"].items()
+                  if k.startswith("served_")}
+        hists = {k: h["count"] for k, h in snap["histograms"].items()
+                 if k.startswith("worker_")}
+        mfu = check_mfu(snap["gauges"], "worker %d" % e["index"])
+        assert served and hists, (e["index"], snap)
+        assert {"served_msm", "served_fft2", "served_eval"} <= set(served)
+        assert snap["device"].startswith("cuda"), snap["device"]
+        print("worker %d METRICS_FETCH: served %s; kernel timings %s; "
+              "mfu %s; kernel G IMAD/s %s" % (
+                  e["index"], json.dumps(served), json.dumps(hists),
+                  json.dumps(mfu), json.dumps({
+                      k: v for k, v in snap["gauges"].items()
+                      if k.startswith("kernel_")})))
+    logs = d.fetch_logs()
+    assert [lg["worker"] for lg in logs] == [0, 1, 2, 3]
+    assert any(ev.get("event") == "profile_captured"
+               for ev in logs[0]["events"]), logs[0]
+    print("LOG_FETCH: events per worker %s"
+          % [len(lg["events"]) for lg in logs])
+    dd.pool.shutdown()
+    for w in dd.workers:
+        w.close()
 
 
 def mode_name(inverse, coset):
@@ -1180,7 +1315,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
     from distributed_plonk_tpu_torch.runtime.netconfig import NetworkConfig
     from distributed_plonk_tpu_torch.runtime.supervisor import (
         WorkerSupervisor, reserve_port)
-    from distributed_plonk_tpu_torch.service import ProofService
+    from distributed_plonk_tpu_torch.service import ObsServer, ProofService
     from distributed_plonk_tpu_torch.service.jobs import (
         JobSpec, build_bucket_keys, build_circuit, shape_key)
     from distributed_plonk_tpu_torch.service.metrics import Metrics
@@ -1451,6 +1586,28 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                     job.error
             serve_s = time.perf_counter() - t
             after = health_launches(d5, "step 5", kind)
+            # the fleet observability plane on this service: /fleet over
+            # HTTP, and the workers' kernel shares in the autoscaler's
+            # mfu_pct sensor
+            svc.attach_fleet(d5, interval_s=1.0)
+            obs = ObsServer(svc).start()
+            try:
+                svc.fleet.scrape_once()
+                url = "http://%s:%d/fleet" % (obs.host, obs.port)
+                with urllib.request.urlopen(url, timeout=30) as r:
+                    fl = json.loads(r.read())
+                members = [m for m in fl["members"] if m["snapshot"]]
+                assert members and fl["width"] >= len(members), fl
+                mfu_pct = asc.read_sensors()["mfu_pct"]
+                assert mfu_pct is not None and 0 < mfu_pct <= 100, mfu_pct
+                shares = check_mfu(svc.metrics.snapshot()["gauges"],
+                                   "the service's fleet gauges")
+                say("step 5: /fleet over HTTP: width %d, %d members "
+                    "scraped; the autoscaler's mfu_pct %s (the workers' "
+                    "mean shares %s)" % (fl["width"], len(members),
+                                         mfu_pct, json.dumps(shares)))
+            finally:
+                obs.close()
             wait_for(lambda: sup5.active_count() == 1, "scale down")
             wait_for(lambda: ctr(m5, "worker_retires") == 1,
                      "retire complete")
@@ -1496,6 +1653,107 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                 p.kill()
             p.wait()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def observe_and_calibrate(golden, v1, v2, n, dev):
+    """Phase 14 (see the module docstring). The plan is cleared at the
+    end, so the phases after this one run the built-in parameters."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import autotune as AT
+    from distributed_plonk_tpu_torch.backend import ntt_torch as N
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.service.metrics import (Metrics,
+                                                             device_peak)
+    from distributed_plonk_tpu_torch.store import ArtifactStore, calibration
+    from distributed_plonk_tpu_torch.trace import Tracer
+    props = torch.cuda.get_device_properties(dev)
+    peak = device_peak(dev)
+    assert peak, "no integer peak known for this card"
+    print("the card's own peak: %d SMs x %d IMAD/clk x %.0f MHz (nvidia-smi "
+          "clocks.max.sm) = %.6g IMAD/s" % (
+              props.multi_processor_count,
+              IMAD_PER_SM_CLOCK[(props.major, props.minor)],
+              peak / props.multi_processor_count
+              / IMAD_PER_SM_CLOCK[(props.major, props.minor)] / 1e6, peak))
+    stages = {"ifft_wires", "commit_wires", "ifft_perm", "commit_perm",
+              "quotient_stream", "coset_ifft_quot", "commit_quot",
+              "commit_open"}
+    for label, (c_, b_, p_) in (("v1", v1), ("v2", v2)):
+        prove(random.Random(1), c_, p_, b_)
+        _build.reset_launches()
+        tr = Tracer()
+        t = time.perf_counter()
+        prove(random.Random(1), c_, p_, b_, tracer=tr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        read_launches("the %s warm prove, traced" % label)
+        m = Metrics()
+        m.observe_kernels(tr.events, device=dev)
+        g = m.snapshot()["gauges"]
+        mfu = check_mfu(g, label)
+        assert {k[4:-4] for k in mfu} == stages, sorted(mfu)
+        dur = {ev["span"].rsplit("/", 1)[-1]: ev["dur_s"]
+               for ev in tr.events if ev.get("flops")}
+        print("%s warm prove %.3f s; per stage: seconds, G IMAD/s, mfu %%:"
+              % (label, secs))
+        for st in sorted(stages):
+            print("  %-16s %.6f s  %10.3f  %.6g" % (
+                st, dur[st], g["kernel_%s_gflops" % st],
+                g["mfu_%s_pct" % st]))
+    store_dir = tempfile.mkdtemp(prefix="dpt_autotune_")
+    try:
+        store = ArtifactStore(store_dir)
+        m = Metrics()
+        _build.reset_launches()
+        t = time.perf_counter()
+        rep = calibration.load_or_run(store, mode="run", shapes=[n],
+                                      budget_s=120, metrics=m, device=dev)
+        cal_s = time.perf_counter() - t
+        read_launches("the calibration", ("ntt", "msm_digits",
+                                           "bucket_sums", "msm_tail"))
+        assert rep["source"] == "fresh" and rep["cells"] == 2, rep
+        plan = AT.active_plan()
+        print("calibration at n = %d: %.3f s, %s" % (n, cal_s,
+                                                       json.dumps(rep)))
+        for (kind, size), cell in sorted(plan.cells.items()):
+            print("  cell %s:%d winner %s: %.6f s against the default's "
+                  "%.6f s (x%s); %d candidates, %d parity rejects, %d "
+                  "errors" % (kind, size, json.dumps(cell["params"]),
+                              cell["best_s"], cell["default_s"],
+                              cell["speedup_vs_default"],
+                              cell["candidates"], cell["parity_rejects"],
+                              cell["errors"]))
+            for c in cell["measured"]:
+                print("    %s %.6f s %s" % (json.dumps(c["params"]),
+                                            c["s"], json.dumps(c["parts"])))
+        print("autotune counters: %s" % json.dumps(
+            m.snapshot()["counters"]))
+        AT.set_active_plan(None)
+        rep2 = calibration.load_or_run(store, mode="run", metrics=m,
+                                       device=dev)
+        assert rep2["source"] == "store" and rep2["measure_runs"] == 0, rep2
+        print("second start: %s" % json.dumps(rep2))
+        ckt, be, pk = v1
+        nplan = N.get_plan(AT.quotient_size(n), dev)
+        print("under the plan: ntt 2^%d passes %s, tiles %s; the commit "
+              "key's chunk %d" % (
+                  nplan.log_n, nplan.digits,
+                  [ps.log_cols for ps in nplan.passes[False]],
+                  be._ctx(pk.ck).chunk))
+        prove(random.Random(1), ckt, pk, be)
+        _build.reset_launches()
+        t = time.perf_counter()
+        proof = prove(random.Random(1), ckt, pk, be)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        read_launches("the v1 prove under the plan")
+        assert proof_io.serialize_proof(proof) == golden, "proof under plan"
+        print("v1 warm prove under the plan %.3f s, equal to the fixture"
+              % secs)
+    finally:
+        AT.set_active_plan(None)
+        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def phase(name):
@@ -1593,6 +1851,11 @@ def main():
         t_srs = time.perf_counter()
         srs = kzg.universal_setup(n + 3, tau=0xDEADBEEF)
         host_srs_s = time.perf_counter() - t_srs
+        # phase 8's v2 circuit, pure Python too
+        t_v2 = time.perf_counter()
+        ckt2, _ = generate_circuit(rng=random.Random(11), height=32,
+                                   num_proofs=50)
+        ckt2_s = time.perf_counter() - t_v2
         build_s = built.result()
     print("kernels built and loaded in %.3f s (%s); nvcc seconds by "
           "library: %s" % (build_s, _build.source_hash(),
@@ -1602,8 +1865,9 @@ def main():
     for name, log in sorted(_build.build_log.items()):
         for fn, regs, spill in ptxas_report(log):
             print("ptxas %-6s %-40s %s; %s" % (name, fn[:40], regs, spill))
-    print("circuit n = %d; host SRS of %d powers in %.3f s (while nvcc "
-          "ran)" % (n, len(srs.powers_of_g1), host_srs_s), flush=True)
+    print("circuit n = %d; host SRS of %d powers in %.3f s, v2 circuit in "
+          "%.3f s (while nvcc ran)" % (n, len(srs.powers_of_g1), host_srs_s,
+                                      ckt2_s), flush=True)
     done("setup", t0)
 
     # --- 2. kernel parity -----------------------------------------------------
@@ -2173,13 +2437,10 @@ def main():
     # --- 8. v2: the reference's 2^18 workload at full size, from the device
     # SRS; correctness is verify plus an identical one-shot round-3 prove
     t0 = phase("v2")
-    t = time.perf_counter()
-    ckt2, _ = generate_circuit(rng=random.Random(11), height=32,
-                               num_proofs=50)
     n2 = ckt2.n
     print("v2 circuit (height 32, 50 Merkle proofs): n = %d, %d public "
-          "inputs, generated in %.3f s" % (n2, ckt2.num_inputs,
-                                           time.perf_counter() - t))
+          "inputs, generated in %.3f s (in the set-up)" % (
+              n2, ckt2.num_inputs, ckt2_s))
     assert n2 == 1 << 18 and n2 + 3 == V2_POWERS, n2
     _build.reset_launches()
     t = time.perf_counter()
@@ -2488,6 +2749,11 @@ def main():
             for w in dd.workers:
                 w.close()
         counters.check("fleet proves")
+
+        # (e) the observability plane over the same workers: a third,
+        # sharded v1 prove with a PROFILE capture armed on worker 0, then a
+        # METRICS_FETCH scrape of all four and a LOG_FETCH
+        fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n)
         fleet.check_alive()
         d.shutdown()
     finally:
@@ -2519,7 +2785,15 @@ def main():
     torch.cuda.empty_cache()
     done("service", t0)
 
-    # --- 14. device time, after the counters were read and the proves timed:
+    # --- 14. observe and calibrate: the kernel shares of the v1 and v2 warm
+    # proves against this card's peak, then a kernel plan measured on a
+    # fresh store at the v1 sizes, loaded again with no measurement, and
+    # the v1 proof under it
+    t0 = phase("observe and calibrate")
+    observe_and_calibrate(golden, (ckt, be, pk), (ckt2, be2, pk2), n, dev)
+    done("observe and calibrate", t0)
+
+    # --- 15. device time, after the counters were read and the proves timed:
     # torch.profiler, then CUDA graphs (captured last, so that no capture
     # precedes a timing of calls from Python)
     t0 = phase("profile")

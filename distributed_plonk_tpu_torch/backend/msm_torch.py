@@ -22,8 +22,9 @@ run the plain version):
      and sort keys lane * nb + bucket (sentinel for skips).
   2. a stable torch sort of the keys and the chunk boundaries (`_plan`):
      index bookkeeping, the same for the kernel and its plain version.
-  3. `bucket_sums` (kernel 3): chunks of CHUNK points per thread, then a
-     pairwise tree of the chunk partials per bucket.
+  3. `bucket_sums` (kernel 3): chunks of `chunk` points per thread (a
+     runtime argument: resolve_chunk, default CHUNK), then a pairwise tree
+     of the chunk partials per bucket.
   4. `msm_tail` (kernel 4, csrc/curve_add.cu): sum_i weight(i) * S_i per
      handle in one launch, by segment running sums.
 
@@ -38,6 +39,7 @@ Accumulators are homogeneous projective (X : Y : Z), identity (0 : 1 : 0);
 results decode on the host as x = X/Z, y = Y/Z.
 """
 
+import copy
 import threading
 
 import torch
@@ -45,6 +47,7 @@ import torch
 from ..constants import FQ_MONT_R, FQ_WORDS, Q_MOD
 from . import _build
 from . import curve_torch as CT
+from .autotune import resolve
 from . import field_torch as F
 from .field_torch import FQ, FR
 from .limbs import ints_to_words, lift, to_tensor
@@ -55,6 +58,13 @@ NEG_BIT = 8             # op word: bits [0, 8) bucket, bit 8 negate y,
 SKIP_BIT = 9            # bit 9 skip (msm_pallas's encoding)
 CHUNK = 32              # sorted points per bucket_sums thread
 TAIL_SEGMENTS = 8       # msm_tail's segments per handle (at most)
+
+
+def resolve_chunk(chunk, n):
+    """bucket_sums' chunk for an n-point key: `chunk` when given, else the
+    active kernel plan's cell nearest n (backend/autotune.py), else
+    CHUNK."""
+    return resolve(chunk, "msm", "chunk", n, CHUNK)
 
 
 def window_bits(n):
@@ -216,48 +226,52 @@ def point_major(x, y):
     return torch.cat([x, y]).t().contiguous()
 
 
-def _plan(keys, n_lanes, n_buckets):
+def _plan(keys, n_lanes, n_buckets, chunk=None):
     """The stable sort of the keys and the run and chunk boundaries:
     (order (N,) int32, count_start (nbk + 1,), chunk_start (nbk + 1,))
     with nbk = n_lanes * n_buckets; bucket k's points are
     order[count_start[k]:count_start[k + 1]], in point order, cut into
-    chunks chunk_start[k]:chunk_start[k + 1]. No host synchronisation."""
+    chunks of `chunk` chunk_start[k]:chunk_start[k + 1]. No host
+    synchronisation. chunk: see resolve_chunk."""
+    chunk = resolve_chunk(chunk, keys.numel() // n_lanes)
     sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
     nbk = n_lanes * n_buckets
     edges = torch.arange(nbk + 1, dtype=torch.int32, device=keys.device)
     count_start = torch.searchsorted(sorted_keys, edges, out_int32=True)
-    chunks = (count_start[1:] - count_start[:-1] + CHUNK - 1) // CHUNK
+    chunks = (count_start[1:] - count_start[:-1] + chunk - 1) // chunk
     chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32,
                                          device=keys.device),
                              torch.cumsum(chunks, 0, dtype=torch.int32)])
     return order.to(torch.int32), count_start, chunk_start
 
 
-def bucket_sums_ref(key, ops, keys, n_lanes, n_buckets):
+def bucket_sums_ref(key, ops, keys, n_lanes, n_buckets, chunk=None):
     """Plain version of bucket_sums. key: (P, 24) point-major affine
     Montgomery points; ops / keys: (n_lanes * P) elements, element
     e = lane * P + point. Returns ((12, n_lanes, n_buckets),)*3: bucket b
     of lane m = the sum of the points whose op in lane m selects b, added
-    in the kernel's order (chunks of CHUNK sorted points from the
-    identity, then the pairwise tree over each bucket's chunks)."""
+    in the kernel's order (chunks of `chunk` sorted points from the
+    identity, then the pairwise tree over each bucket's chunks). chunk:
+    see resolve_chunk."""
     dev = key.device
     P = key.shape[0]
+    chunk = resolve_chunk(chunk, P)
     nbk = n_lanes * n_buckets
-    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets)
+    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets, chunk)
     cs, ks = count_start.long(), chunk_start.long()
     n_valid, n_chunks = int(cs[-1]), int(ks[-1])
     e = order[:n_valid].long()
     bucket = keys.reshape(-1).long()[e]
     rank = torch.arange(n_valid, device=dev) - cs[bucket]
-    chunk_id = ks[bucket] + rank // CHUNK
-    step = rank % CHUNK
+    chunk_id = ks[bucket] + rank // chunk
+    step = rank % chunk
     pts = key[e % P]
     px, py = pts[:, :FQ_WORDS].t(), pts[:, FQ_WORDS:].t()
     neg = ((ops.reshape(-1)[e].long() >> NEG_BIT) & 1) != 0
     py = torch.where(neg[None], F.neg(FQ, py), py)
 
     acc = CT.proj_inf((n_chunks,), dev)
-    for t in range(CHUNK):
+    for t in range(chunk):
         sel = (step == t).nonzero()[:, 0]
         if sel.numel() == 0:
             break
@@ -287,7 +301,7 @@ def bucket_sums_ref(key, ops, keys, n_lanes, n_buckets):
     return tuple(o.reshape(FQ_WORDS, n_lanes, n_buckets) for o in out)
 
 
-def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets):
+def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets, chunk=None):
     """Kernel 3's accumulation launch (see bucket_sums_ref): the sort and
     boundaries in torch, then the chunk and tree kernels."""
     if key.dtype != torch.int32 or key.dim() != 2 or key.shape[1] != 24 \
@@ -304,9 +318,12 @@ def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets):
         raise ValueError("bucket_sums: expected one CUDA device")
     if n_buckets > 256:
         raise ValueError("bucket_sums: at most 256 buckets")
+    chunk = resolve_chunk(chunk, P)
+    if chunk < 1:
+        raise ValueError("bucket_sums: chunk must be positive")
     nbk = n_lanes * n_buckets
-    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets)
-    cmax = ops.numel() // CHUNK + nbk          # >= chunk_start[nbk]
+    order, count_start, chunk_start = _plan(keys, n_lanes, n_buckets, chunk)
+    cmax = ops.numel() // chunk + nbk          # >= chunk_start[nbk]
     partials = torch.empty((cmax, 36), dtype=torch.int32, device=key.device)
     out = tuple(torch.empty((FQ_WORDS, n_lanes, n_buckets), dtype=torch.int32,
                             device=key.device) for _ in range(3))
@@ -316,17 +333,17 @@ def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets):
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             partials.data_ptr(), key.data_ptr(), ops.data_ptr(),
             order.data_ptr(), count_start.data_ptr(), chunk_start.data_ptr(),
-            P, nbk, cmax, CHUNK, F._stream(key))
+            P, nbk, cmax, chunk, F._stream(key))
     _build.check(rc, "bucket_sums")
     _build.count("bucket_sums")
     return out
 
 
-def bucket_sums(key, ops, keys, n_lanes, n_buckets):
+def bucket_sums(key, ops, keys, n_lanes, n_buckets, chunk=None):
     if key.device.type == "cpu":
-        return bucket_sums_ref(key, ops, keys, n_lanes, n_buckets)
+        return bucket_sums_ref(key, ops, keys, n_lanes, n_buckets, chunk)
     return bucket_sums_cuda(key, ops.contiguous(), keys.contiguous(),
-                            n_lanes, n_buckets)
+                            n_lanes, n_buckets, chunk)
 
 
 # --- kernel 4: the MSM tail -------------------------------------------------
@@ -473,12 +490,14 @@ class DeviceCommitKey:
 
     def context(self, device):
         """The MsmContext of this key on `device` (built on first use,
-        under the key's lock)."""
+        under the key's lock), at the chunk resolve_chunk gives now: a
+        reloaded kernel plan gets a view at its chunk, sharing the one
+        window-shifted key."""
         with self._lock:
             ctx = self._contexts.get(device)
             if ctx is None:
                 ctx = self._contexts[device] = MsmContext(self, device)
-        return ctx
+        return ctx.at_chunk(resolve_chunk(None, ctx.n))
 
 
 class MsmContext:
@@ -489,25 +508,25 @@ class MsmContext:
     # batch are shared by its handles
     BATCH_CHUNK = 32
 
-    def __init__(self, bases, device=None):
+    def __init__(self, bases, device=None, chunk=None):
         device = F.resolve_device(device, "MsmContext")
         if isinstance(bases, DeviceCommitKey):
             ax, ay, inf = CT.batch_to_affine(bases.point)
         else:
             ax, ay, inf = points_to_device(bases, 0, device)
-        self._build(ax, ay, inf)
+        self._build(ax, ay, inf, chunk=chunk)
 
     @classmethod
-    def from_affine(cls, ax, ay, inf, key):
+    def from_affine(cls, ax, ay, inf, key, chunk=None):
         """A context over (12, n) affine Montgomery bases already on a
         device, (n,) inf marking points at infinity, and their
         window-shifted key, built by the caller (shifted_key with
         window_of(n)'s c and windows)."""
         ctx = cls.__new__(cls)
-        ctx._build(ax, ay, inf, key)
+        ctx._build(ax, ay, inf, key, chunk)
         return ctx
 
-    def _build(self, ax, ay, inf, key=None):
+    def _build(self, ax, ay, inf, key=None, chunk=None):
         self.device = ax.device
         self.n = ax.shape[1]
         self.signed, self.c, self.windows, self.n_buckets = \
@@ -515,6 +534,20 @@ class MsmContext:
         self.inf = inf
         self.key = shifted_key(ax, ay, inf, self.c, self.windows) \
             if key is None else key
+        # bucket_sums' chunk, resolved once (resolve_chunk)
+        self.chunk = resolve_chunk(chunk, self.n)
+        self._views = {self.chunk: self}
+        self._views_lock = threading.Lock()
+
+    def at_chunk(self, chunk):
+        """This context at another chunk: a view sharing the shifted key
+        (built once per chunk), or self at its own chunk."""
+        with self._views_lock:
+            view = self._views.get(chunk)
+            if view is None:
+                view = self._views[chunk] = copy.copy(self)
+                view.chunk = chunk
+            return view
 
     def stack(self, hs):
         """(8, L <= n) handles -> one (8, B, n) zero-padded batch."""
@@ -528,7 +561,8 @@ class MsmContext:
         bucket sums ((12, B, n_buckets),)*3 (kernel 3: msm_digits, then
         bucket_sums)."""
         ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
-        return bucket_sums(self.key, ops, keys, v.shape[1], self.n_buckets)
+        return bucket_sums(self.key, ops, keys, v.shape[1], self.n_buckets,
+                           self.chunk)
 
     def tail(self, planes):
         """Bucket sums -> ((12, B),)*3 projective totals (kernel 4's

@@ -18,6 +18,13 @@ out of the last pass's stores. The coset pre-scale rides the first pass,
 the inverse post-scale the last. `NttPlan` holds each pass's geometry and
 tables; `ntt_ref`, the plain version, runs the same passes with the same
 tables and index maps.
+
+R and the tile width (TILE_LOG_COLS) are runtime arguments of the
+kernel: `plan_params` resolves them per size (an explicit argument, else
+the active kernel plan of backend/autotune.py, else these constants), and
+every split gives the same output words. The scale tables, which do not
+depend on the split, are built once per size and device and shared by
+its plans.
 """
 
 import ctypes
@@ -29,11 +36,14 @@ from ..constants import R_MOD, FR_GENERATOR, FR_MONT_R, FR_WORDS
 from ..fields import fr_inv, fr_root_of_unity
 from . import _build
 from . import field_torch as F
+from .autotune import resolve
 from .field_torch import FR
 from .limbs import ints_to_words, to_tensor
 
 MAX_LOG_ROWS = 8    # radix-2 stages per pass: 2^8 rows x 32 B = 8 KB a column
 TILE_LOG_COLS = 2   # a block's tile: 4 neighbouring columns
+# dynamic shared memory a block may opt in to on compute capability 9.0
+SMEM_MAX = 227 * 1024
 
 
 def _powers(base, count, start=1):
@@ -62,6 +72,40 @@ def split_digits(log_n, max_log_rows=MAX_LOG_ROWS):
     return [base + 1] * extra + [base] * (passes - extra)
 
 
+def plan_params(n, max_log_rows=None, tile_log_cols=None):
+    """(max_log_rows, tile_log_cols) of an n-point plan: the explicit
+    arguments, else the active kernel plan's cell nearest n, else
+    MAX_LOG_ROWS and TILE_LOG_COLS."""
+    return (resolve(max_log_rows, "ntt", "max_log_rows", n, MAX_LOG_ROWS),
+            resolve(tile_log_cols, "ntt", "tile_log_cols", n,
+                    TILE_LOG_COLS))
+
+
+def _log_cols(n, digits, p, tile_log_cols):
+    """log2 of pass p's tile width: up to tile_log_cols, within the
+    columns the pass has (the sub-transforms before the last pass, the
+    first digit's values in the last)."""
+    if p < len(digits) - 1:
+        cols = (n >> sum(digits[:p])) >> digits[p]
+        return min(tile_log_cols, cols.bit_length() - 1)
+    return min(tile_log_cols, digits[0] if len(digits) > 1 else 0)
+
+
+def pass_shapes(n, max_log_rows, tile_log_cols):
+    """[(log_rows, log_cols)] of each pass of an n-point plan."""
+    digits = split_digits(n.bit_length() - 1, max_log_rows)
+    return [(d, _log_cols(n, digits, p, tile_log_cols))
+            for p, d in enumerate(digits)]
+
+
+def pass_smem_bytes(log_rows, log_cols):
+    """Dynamic shared memory of one block of a pass (csrc/ntt.cu: two
+    tile buffers of 8 words by slots_per_word)."""
+    slots = (1 << (log_rows + log_cols)) + ((1 << log_rows)
+                                            >> (5 - log_cols))
+    return 2 * 8 * 4 * slots
+
+
 class NttPass:
     """One pass of kernel 2: the column DFTs of one index digit over tiles
     of neighbouring columns, where each tile's elements come from and go
@@ -74,9 +118,10 @@ class NttPass:
              "out_mid", "out_tile", "out_col", "out_row", "tw_row",
              "tw_tile", "tw_words", "stage_words")
 
-    def __init__(self, n, digits, p, w, device):
+    def __init__(self, n, digits, p, w, device, tile_log_cols):
         self.n = n
         self.log_rows = digits[p]
+        self.log_cols = _log_cols(n, digits, p, tile_log_cols)
         rows = 1 << self.log_rows
         self.last = p == len(digits) - 1
         sub = n >> sum(digits[:p])                  # N_p, this sub-DFT
@@ -90,25 +135,27 @@ class NttPass:
         self.tw_row = self.tw_tile = self.tw_words = 0
         if not self.last:
             cols = sub >> self.log_rows                 # S
-            self.log_cols = min(TILE_LOG_COLS, cols.bit_length() - 1)
             self.mids = n // sub
             self.tiles_per_mid = cols >> self.log_cols
             self.in_mid, self.in_tile = sub, 1 << self.log_cols
             self.in_col, self.in_row = 1, cols
             self.out_mid, self.out_tile = self.in_mid, self.in_tile
             self.out_col, self.out_row = self.in_col, self.in_row
-            # output (k, s) times w_sub^(k s), at table index k * S + s
+            # output (k, s) times w_sub^(k s), at table index k * S + s:
+            # row k is the powers of w_sub^k, a product an entry (a pow
+            # an entry took a minute at 2^21)
             w_sub = pow(w, n // sub, R_MOD)
             self.tw_row, self.tw_tile, self.tw_words = (
                 cols, 1 << self.log_cols, sub)
-            self.tw_table = _mont_table(
-                [pow(w_sub, k * c, R_MOD) for k in range(rows)
-                 for c in range(cols)], device)
+            tw, step = [], 1
+            for _ in range(rows):
+                tw += _powers(step, cols)
+                step = step * w_sub % R_MOD
+            self.tw_table = _mont_table(tw, device)
         else:
             # the columns are the sub-transforms; a tile takes neighbouring
             # values of the first digit k_1 (neighbours in natural order)
             first = digits[0] if len(digits) > 1 else 0
-            self.log_cols = min(TILE_LOG_COLS, first)
             self.mids = n >> (first + self.log_rows)     # digits 2 .. P-1
             self.tiles_per_mid = (1 << first) >> self.log_cols
             self.in_mid, self.in_row = rows, 1
@@ -164,29 +211,51 @@ class NttPass:
         return src, dst, tw
 
 
+_SCALES = {}
+_SCALES_LOCK = threading.Lock()
+
+
+def _scale_tables(n, device):
+    """(coset pre-scale g^i, post-scale g^-i / n, post-scale 1/n) of size
+    n on device: independent of the pass split, built once and shared by
+    every plan of that size."""
+    key = (n, str(device))
+    with _SCALES_LOCK:
+        tabs = _SCALES.get(key)
+        if tabs is None:
+            g = FR_GENERATOR
+            n_inv = fr_inv(n % R_MOD)
+            tabs = _SCALES[key] = (
+                _mont_table(_powers(g, n), device),
+                _mont_table(_powers(fr_inv(g), n, start=n_inv), device),
+                _mont_table([n_inv] * n, device))
+    return tabs
+
+
 class NttPlan:
     """Pass geometry and tables for one domain size, on one device (None:
     the card), built once: the passes for the forward and for the inverse
     root; the coset pre-scale g^i; the inverse post-scales 1/n and
-    g^-i / n, in natural order."""
+    g^-i / n, in natural order. max_log_rows and tile_log_cols: see
+    plan_params."""
 
-    def __init__(self, n, device=None, max_log_rows=MAX_LOG_ROWS):
+    def __init__(self, n, device=None, max_log_rows=None,
+                 tile_log_cols=None):
         assert n >= 2 and n & (n - 1) == 0, n
         self.n = n
         self.log_n = n.bit_length() - 1
         self.device = F.resolve_device(device, "NttPlan")
-        self.digits = split_digits(self.log_n, max_log_rows)
+        self.max_log_rows, self.tile_log_cols = plan_params(
+            n, max_log_rows, tile_log_cols)
+        self.digits = split_digits(self.log_n, self.max_log_rows)
         w = fr_root_of_unity(n)
         self.passes = {
-            inverse: [NttPass(n, self.digits, p, root, self.device)
+            inverse: [NttPass(n, self.digits, p, root, self.device,
+                              self.tile_log_cols)
                       for p in range(len(self.digits))]
             for inverse, root in ((False, w), (True, fr_inv(w)))}
-        g = FR_GENERATOR
-        n_inv = fr_inv(n % R_MOD)
-        self.coset_tab = _mont_table(_powers(g, n), self.device)
-        self.post_coset = _mont_table(_powers(fr_inv(g), n, start=n_inv),
-                                      self.device)
-        self.post_plain = _mont_table([n_inv] * n, self.device)
+        self.coset_tab, self.post_coset, self.post_plain = \
+            _scale_tables(n, self.device)
         self._maps = {}
 
     def tables(self, inverse, coset):
@@ -221,16 +290,24 @@ _PLANS = {}
 _PLANS_LOCK = threading.Lock()
 
 
-def get_plan(n, device=None, max_log_rows=MAX_LOG_ROWS):
-    """The cached NttPlan of size n on device (None: the card). Safe under
-    concurrent first use (a fleet worker serves each connection on its own
-    thread): the plan is built once, under the lock."""
+def get_plan(n, device=None, max_log_rows=None, tile_log_cols=None):
+    """The cached NttPlan of size n on device (None: the card), its pass
+    split and tile resolved by plan_params. The cache keys on the
+    resolved values, which are all a plan depends on: a reloaded kernel
+    plan reaches a plan of its own split, and the splits it shares with
+    the previous one keep their tables (at 2^21 they take tens of seconds
+    to build). Safe under concurrent first use (a fleet worker serves each
+    connection on its own thread): the plan is built once, under the
+    lock."""
     device = F.resolve_device(device, "get_plan")
-    key = (n, str(device), max_log_rows)
+    max_log_rows, tile_log_cols = plan_params(n, max_log_rows,
+                                              tile_log_cols)
+    key = (n, str(device), max_log_rows, tile_log_cols)
     with _PLANS_LOCK:
         plan = _PLANS.get(key)
         if plan is None:
-            plan = _PLANS[key] = NttPlan(n, device, max_log_rows)
+            plan = _PLANS[key] = NttPlan(n, device, max_log_rows,
+                                         tile_log_cols)
     return plan
 
 

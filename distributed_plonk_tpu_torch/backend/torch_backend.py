@@ -40,7 +40,7 @@ from . import limbs
 from . import ntt_torch
 from . import prover_torch as PT
 from .field_torch import FR
-from .msm_torch import DeviceCommitKey, MsmContext
+from .msm_torch import DeviceCommitKey, MsmContext, resolve_chunk
 
 
 class _DevicePending:
@@ -319,13 +319,18 @@ class TorchBackend:
     # --- commitments ----------------------------------------------------------
 
     def _ctx(self, ck):
+        """The MSM context of commit key `ck`, at the chunk the kernel
+        plan resolves now (msm_torch.resolve_chunk): a reloaded plan gets
+        a view at its chunk that shares the cached window-shifted key."""
         if isinstance(ck, DeviceCommitKey):
             # the key's own context on this device: shared with every
             # other backend here (preprocess's, a service's pool workers)
-            return self._cached(self._msm_ctxs, id(ck),
-                                lambda: (ck, ck.context(self.device)))[1]
-        return self._cached(self._msm_ctxs, id(ck),
-                            lambda: (ck, MsmContext(ck, self.device)))[1]
+            ctx = self._cached(self._msm_ctxs, id(ck),
+                               lambda: (ck, ck.context(self.device)))[1]
+        else:
+            ctx = self._cached(self._msm_ctxs, id(ck),
+                               lambda: (ck, MsmContext(ck, self.device)))[1]
+        return ctx.at_chunk(resolve_chunk(None, ctx.n))
 
     def commit_many_h(self, ck, hs):
         return self._ctx(ck).msm_mont_limbs_many(hs)

@@ -1,16 +1,24 @@
-"""Observability (a copy of the JAX package's obs/, its structured log
-only).
+"""Fleet observability plane (a copy of the JAX package's obs/):
 
-    obs/log.py   structured JSONL events, trace-correlated, in a bounded
-                 per-process ring; the service stores each job's events
-                 beside its merged trace, and ObsServer serves the ring at
-                 /logs.
+    obs/log.py        structured JSONL events, trace-correlated, in a
+                      bounded per-process ring; the service stores each
+                      job's events beside its merged trace, ObsServer
+                      serves the ring at /logs, a worker over LOG_FETCH.
+    obs/fleet.py      fleet metrics: scrape every worker's Metrics
+                      snapshot over METRICS_FETCH (breaker- and
+                      suspect-aware), render dpt_fleet_* Prometheus series
+                      with per-worker labels, and build the /fleet JSON.
+    obs/profiling.py  on-demand captures behind the PROFILE wire tag:
+                      torch.profiler on a card (a gzipped Chrome trace),
+                      an all-thread Python stack sampler otherwise; the
+                      service stores them as profile:<id> artifacts served
+                      at /profile/<id>.
 
-Not ported: obs/fleet.py (fleet metrics over METRICS_FETCH) and
-obs/profiling.py (on-demand captures over PROFILE); the ring is not
-served over LOG_FETCH either.
+The wire tags are the JAX package's: either package's dispatcher scrapes
+either package's workers, and a worker that predates a tag answers ERR,
+which the caller degrades to an empty result.
 """
 
-from . import log  # noqa: F401
+from . import fleet, log, profiling  # noqa: F401
 
-__all__ = ["log"]
+__all__ = ["log", "fleet", "profiling"]

@@ -19,6 +19,10 @@ Subsystems the port emits:
                  self-verify blocks, drain outcomes
     aggregate    batch-KZG aggregation verdicts: aggregates built
                  (members, kinds, build_s)
+    worker       fleet-worker events: joins, warm rejoins, injected
+                 silent data corruption, profiles captured, calibration
+                 pickups
+    obs          the observability plane itself: profiles stored
 
 Levels: debug < info < warn < error (no filtering on record: the ring is
 small and the consumer filters; the file sink takes a minimum level).
@@ -140,6 +144,11 @@ def emit(subsystem, event, **kw):
     """Module-level shorthand: obs.log.emit("service", "retry",
     level="warn", job_id=..., reason=...)."""
     return _BUFFER.emit(subsystem, event, **kw)
+
+
+def buffer():
+    """This process's ring (its `seq` counts the events recorded)."""
+    return _BUFFER
 
 
 def fetch(trace_id=None, since_seq=0, limit=None):

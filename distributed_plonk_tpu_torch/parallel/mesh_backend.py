@@ -32,6 +32,7 @@ import collections
 
 import torch
 
+from ..backend.autotune import cache_key
 from ..backend.torch_backend import TorchBackend
 from .msm_mesh import MeshMsmContext
 from .ntt_mesh import MeshNttPlan, divides
@@ -84,8 +85,10 @@ class MeshBackend(TorchBackend):
     # --- commitments ---------------------------------------------------------
 
     def _ctx(self, ck):
-        return self._cached(self._msm_ctxs, id(ck), lambda: (
-            ck, MeshMsmContext(self.mesh, ck)))[1]
+        # keyed on the kernel plan's revision too: each shard's context
+        # resolved its chunk when it was built
+        return self._cached(self._msm_ctxs, cache_key(id(ck)),
+                            lambda: (ck, MeshMsmContext(self.mesh, ck)))[1]
 
     def commit_many_h(self, ck, hs):
         self.mesh_msm_calls += len(hs)

@@ -36,12 +36,22 @@ All three produce byte-identical proofs for the same (rng, circuit, pk):
 everything Fiat-Shamir or blinding touches is per-member state that never
 crosses members, and pipelining only moves WHEN a launch happens, never
 what it computes.
+
+Work attribution: the spans of kernel work (the NTT spans, the commits)
+carry the work model of trace.py (`flops`, `data_bytes`), which
+Metrics.observe_kernels turns into per-stage utilisation. A gauge is only
+honest if its seconds cover the device work, so on the card, where a span
+covers the launches only, the model rides a `kernels/<name>` event
+instead: CUDA events around the span's launches for the NTT spans, the
+dispatch-to-force interval for the commits. On the host, and on backends
+that compute before they return (a fleet), the model rides the span.
 """
 
 import random
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 from .checkpoint import (_point_dec, _point_enc, dump_handle, load_handle,
                          workload_fingerprint)
@@ -49,7 +59,7 @@ from .constants import R_MOD
 from .fields import fr_inv
 from .poly import Domain
 from .circuit import NUM_WIRE_TYPES, Q_LC, Q_MUL, Q_HASH, Q_O, Q_C, Q_ECC
-from .trace import NULL_TRACER
+from .trace import NULL_TRACER, msm_flops, ntt_flops
 from .transcript import StandardTranscript
 
 # members in flight in prove_pipelined when the caller gives no depth
@@ -92,23 +102,79 @@ class _Ready:
 class _KernelPending:
     """A dispatched-but-unforced device result. force() blocks until the
     device delivers, then records a `kernels/<name>` trace event covering
-    dispatch→force: the device time of the dispatched work plus its host
-    decode. The dispatch itself is the `<name>` span; under the pipeline
-    the event overlaps other members' rounds."""
+    dispatch→force, with `attrs` (the work model) on it: the device time
+    of the dispatched work plus its host decode. The dispatch itself is
+    the `<name>` span; under the pipeline the event overlaps other
+    members' rounds."""
 
-    __slots__ = ("_force", "_tr", "_name", "_p0")
+    __slots__ = ("_force", "_tr", "_name", "_attrs", "_w0", "_p0")
 
-    def __init__(self, force, tr, name):
+    def __init__(self, force, tr, name, **attrs):
         self._force = force
         self._tr = tr
         self._name = name
+        self._attrs = attrs
+        self._w0 = time.time()
         self._p0 = time.perf_counter()
 
     def force(self):
         values = self._force()
         self._tr.add_event("kernels/" + self._name,
-                           time.perf_counter() - self._p0)
+                           time.perf_counter() - self._p0, ts=self._w0,
+                           **self._attrs)
         return values
+
+
+_WORK_KEYS = ("flops", "data_bytes")
+
+
+def _record_events(devices):
+    """One timing CUDA event recorded now on each device's current
+    stream."""
+    import torch
+    evs = []
+    for d in devices:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(d))
+        evs.append(ev)
+    return evs
+
+
+@contextmanager
+def _work_span(cx, mb, name, **attrs):
+    """The span `name` around a stage's device work, `attrs` holding its
+    work model. Where the backend launches on the card (cx.event_devices)
+    the span keeps the other attributes, and the model goes on a
+    `kernels/<name>` event whose seconds are the device's, from CUDA
+    events recorded before and after the launches (_flush_work records
+    it once the round's results are forced)."""
+    if not cx.event_devices or mb.tr is NULL_TRACER:
+        with mb.tr.span(name, **attrs):
+            yield
+        return
+    lite = {k: v for k, v in attrs.items() if k not in _WORK_KEYS}
+    w0 = time.time()
+    starts = _record_events(cx.event_devices)
+    with mb.tr.span(name, **lite):
+        yield
+    ends = _record_events(cx.event_devices)
+    mb.work.append((name, w0, starts, ends,
+                    {k: attrs[k] for k in _WORK_KEYS if k in attrs}))
+
+
+def _flush_work(mb):
+    """Record the member's pending `kernels/<name>` events of device
+    work, one level under the round: each lasts the longest start-to-end
+    interval of its devices. Called after the round's results were
+    forced, so the end events have completed and reading them does not
+    wait (query() first; a wait only if a caller flushed early)."""
+    while mb.work:
+        name, w0, starts, ends, attrs = mb.work.pop(0)
+        for ev in ends:
+            if not ev.query():
+                ev.synchronize()
+        dur = max(a.elapsed_time(b) for a, b in zip(starts, ends)) / 1e3
+        mb.tr.add_event("kernels/" + name, dur, ts=w0, depth=1, **attrs)
 
 
 class _ProveCtx:
@@ -137,6 +203,14 @@ class _ProveCtx:
         self.stream = getattr(backend, "quotient_streamed", None)
         self.commit_async = getattr(backend, "commit_many_async", None)
         self.eval_async = getattr(backend, "eval_many_async", None)
+        # the cards this backend launches on (a mesh's shards, or its one
+        # device), whose CUDA events time the work spans; none on the host
+        # or for a backend that computes before it returns
+        mesh = getattr(backend, "mesh", None)
+        devs = list(mesh.devices) if mesh is not None \
+            else [getattr(backend, "device", None)]
+        self.event_devices = list(dict.fromkeys(
+            d for d in devs if getattr(d, "type", None) == "cuda"))
 
 
 class _Member:
@@ -156,6 +230,7 @@ class _Member:
         self.fp = None
         self.ck_arrays = {}
         self.ck_meta = {}
+        self.work = []    # device-timed work spans awaiting _flush_work
 
 
 def _save_member(cx, mb, round_no):
@@ -182,17 +257,27 @@ def _points(meta_val):
     return [_point_dec(v) for v in meta_val]
 
 
-def _dispatch_commit(cx, mb, hs, name):
-    """Dispatch the round's commit MSMs over `hs`. Async-capable backends
-    enqueue the launches under the `<name>` span and return an unforced
-    pending (the member's host-finalize forces it — that is the pipeline
-    overlap window); backends without async dispatch compute inline under
-    that span."""
+def _commit_attrs(n, width, count):
+    """The commit spans' work model: `count` MSMs of n + width points."""
+    return {"polys": count, "flops": msm_flops(n + width, count),
+            "data_bytes": count * (n + width) * 32}
+
+
+def _dispatch_commit(cx, mb, hs, name, width):
+    """Dispatch the round's commit MSMs over `hs` (handles of n + width
+    coefficients). Async-capable backends enqueue the launches under the
+    `<name>` span and return an unforced pending (the member's
+    host-finalize forces it — that is the pipeline overlap window), the
+    work model moved onto its `kernels/<name>` event; backends without
+    async dispatch compute inline under that span, which carries the
+    model."""
+    attrs = _commit_attrs(cx.n, width, len(hs))
     if cx.commit_async is not None:
-        with mb.tr.span(name):
+        with mb.tr.span(name, polys=len(hs)):
             dev = cx.commit_async(cx.ck, hs)
-        return _KernelPending(dev.force, mb.tr, name)
-    with mb.tr.span(name):
+        return _KernelPending(dev.force, mb.tr, name,
+                              **{k: attrs[k] for k in _WORK_KEYS})
+    with mb.tr.span(name, **attrs):
         return _Ready(cx.backend.commit_many_h(cx.ck, hs))
 
 
@@ -218,8 +303,9 @@ def _dispatch_evals(cx, mb, pairs):
 
 def _work_r1(cx, mb):
     # --- Round 1: wire polynomials (reference src/dispatcher2.rs:293-323)
-    be, n = cx.backend, cx.n
-    with mb.tr.span("ifft_wires"):
+    be, n, nw = cx.backend, cx.n, cx.nw
+    with _work_span(cx, mb, "ifft_wires", polys=nw, flops=ntt_flops(n, nw),
+                    data_bytes=nw * n * 32):
         # one batch call: one launch on the device (join_all across the
         # workers in the reference, dispatcher2.rs:294-306)
         wire_coeffs = be.ifft_many(cx.domain, be.wire_values(mb.ckt))
@@ -256,7 +342,8 @@ def _work_r2(cx, mb):
     mb.gamma = mb.transcript.get_and_append_challenge(b"gamma")
     with mb.tr.span("perm_product"):
         product_h = be.perm_product(mb.ckt, mb.beta, mb.gamma, n)
-    with mb.tr.span("ifft_perm"):
+    with _work_span(cx, mb, "ifft_perm", flops=ntt_flops(n),
+                    data_bytes=n * 32):
         perm_coeffs = be.ifft_h(cx.domain, product_h)
     mb.permutation_poly = be.blind(perm_coeffs, _rand(mb.rng, 3), n)
     return [mb.permutation_poly]
@@ -296,13 +383,17 @@ def _work_r3(cx, mb):
         cx.domain, be.lift(mb.pub + [0] * (n - len(mb.pub))))
     head = (n, m, cx.quot_domain, cx.pk.vk.k, mb.beta, mb.gamma, mb.alpha,
             alpha_sq_div_n)
+    n_coset_polys = len(cx.sel_h) + 2 * nw + 2
+    work = {"flops": ntt_flops(m, n_coset_polys),
+            "data_bytes": n_coset_polys * m * 32}
     if cx.stream is not None:
-        with mb.tr.span("quotient_stream"):
+        with _work_span(cx, mb, "quotient_stream", m=m, polys=n_coset_polys,
+                        **work):
             quot_evals = cx.stream(*head, cx.sel_h, cx.sigma_h,
                                    mb.wire_polys, mb.permutation_poly,
                                    pi_coeffs)
     else:
-        with mb.tr.span("coset_ffts"):
+        with _work_span(cx, mb, "coset_ffts", polys=n_coset_polys, **work):
             # the 25 coset-FFTs go out as one batch (one device launch;
             # concurrent across the workers in dispatcher2.rs:382-423)
             batch = be.coset_fft_many(
@@ -316,7 +407,8 @@ def _work_r3(cx, mb):
                 batch[ns + nw:ns + 2 * nw], batch[ns + 2 * nw],
                 batch[ns + 2 * nw + 1])
         del batch
-    with mb.tr.span("coset_ifft_quot"):
+    with _work_span(cx, mb, "coset_ifft_quot", flops=ntt_flops(m),
+                    data_bytes=m * 32):
         quotient_poly = be.coset_ifft_h(cx.quot_domain, quot_evals)
 
     expected_degree = nw * (n + 1) + 2
@@ -440,13 +532,15 @@ class _Stage:
     (round 5 never snapshots, so it has none). `commit` names the round's
     commit span; None marks round 4, which evaluates instead."""
 
-    __slots__ = ("no", "name", "work", "commit", "finalize", "restore")
+    __slots__ = ("no", "name", "work", "commit", "width", "finalize",
+                 "restore")
 
-    def __init__(self, no, work, commit, finalize, restore=None):
+    def __init__(self, no, work, commit, width, finalize, restore=None):
         self.no = no
         self.name = "round%d" % no
         self.work = work
         self.commit = commit
+        self.width = width    # the committed handles hold n + width
         self.finalize = finalize
         self.restore = restore
 
@@ -454,15 +548,15 @@ class _Stage:
         items = self.work(cx, mb)
         if self.commit is None:
             return _dispatch_evals(cx, mb, items)
-        return _dispatch_commit(cx, mb, items, self.commit)
+        return _dispatch_commit(cx, mb, items, self.commit, self.width)
 
 
 _STAGES = (
-    _Stage(1, _work_r1, "commit_wires", _finalize_r1, _restore_r1),
-    _Stage(2, _work_r2, "commit_perm", _finalize_r2, _restore_r2),
-    _Stage(3, _work_r3, "commit_quot", _finalize_r3, _restore_r3),
-    _Stage(4, _work_r4, None, _finalize_r4, _restore_r4),
-    _Stage(5, _work_r5, "commit_open", _finalize_r5),
+    _Stage(1, _work_r1, "commit_wires", 2, _finalize_r1, _restore_r1),
+    _Stage(2, _work_r2, "commit_perm", 3, _finalize_r2, _restore_r2),
+    _Stage(3, _work_r3, "commit_quot", 2, _finalize_r3, _restore_r3),
+    _Stage(4, _work_r4, None, 0, _finalize_r4, _restore_r4),
+    _Stage(5, _work_r5, "commit_open", 2, _finalize_r5),
 )
 
 
@@ -503,6 +597,7 @@ def prove(rng, circuit, pk, backend, tracer=None, checkpoint=None):
         else:
             with mb.tr.span(st.name):
                 values = st.launch(cx, mb).force()
+                _flush_work(mb)
             st.finalize(cx, mb, values)
     return mb.proof
 
@@ -605,6 +700,7 @@ def prove_many(rngs, circuits, pk, backend, tracers=None, checkpoints=None,
         for mb in live:
             results[mb.i] = out[j:j + len(items[mb.i])]
             j += len(items[mb.i])
+            _flush_work(mb)
         each_live(lambda mb: st.finalize(cx, mb, results[mb.i]))
         # every member's timeline shows the batch round it rode in (the
         # launches are shared, so the span IS each job's wall time)
@@ -707,6 +803,7 @@ class PipelinedProver:
                     t1 = time.perf_counter()
                     with mb.tr.span(st.name + "_finalize"):
                         values = pending.force()
+                        _flush_work(mb)
                         t2 = time.perf_counter()
                         st.finalize(mb.cx, mb, values)
                 except self.abort_on:

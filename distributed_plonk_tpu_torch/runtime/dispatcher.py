@@ -4,10 +4,10 @@ The port's copy of the JAX package's runtime/dispatcher.py (WorkerHandle,
 Dispatcher, RemoteBackend). It speaks the same wire protocol, so it drives
 the port's workers (runtime/worker.py, kernels on the card) and the JAX
 package's alike. Dynamic membership (`enable_membership`: JOIN / LEAVE /
-ROSTER, runtime/membership.py) grows and shrinks the fleet at runtime;
-the planes the port has not ported yet raise NotImplementedError naming
-their ROADMAP item: the fleet metrics scrape (`fleet_metrics`) and
-on-demand profiles (`profile_worker`).
+ROSTER, runtime/membership.py) grows and shrinks the fleet at runtime.
+The observability plane reads the workers over the wire: `fleet_metrics`
+(METRICS_FETCH, obs/fleet.py), `fetch_logs` (LOG_FETCH) and
+`profile_worker` (PROFILE, obs/profiling.py).
 
 The analog of the reference's dispatcher client library
 (reference src/dispatcher.rs:29-175) + the v2 distributed compute
@@ -1186,18 +1186,74 @@ class Dispatcher:
                 offsets.append(est[i])
         return merge_traces(dumps, offsets=offsets)
 
+    # -- fleet observability (obs/fleet.py consumes these) --------------------
+
     def fleet_metrics(self):
-        """The METRICS_FETCH fleet scrape is not ported yet."""
-        raise NotImplementedError(
-            "the fleet metrics scrape (obs/fleet.py) is not ported: "
-            "ROADMAP Queue 1, service, store and tooling")
+        """One METRICS_FETCH scrape over the current roster — see
+        obs.fleet.scrape for the entry shape (breaker/suspect-aware;
+        old workers degrade to snapshot=None)."""
+        from ..obs import fleet as obs_fleet
+        return obs_fleet.scrape(self)
+
+    def fetch_logs(self, worker=None, trace_id=None, since_seq=0):
+        """[{worker, events, seq}] from each (or one) worker's LOG_FETCH
+        ring. A worker that predates the tag, or is dead, contributes an
+        empty list — never an error."""
+        req = protocol.encode_json(
+            {k: v for k, v in (("trace_id", trace_id),
+                               ("since_seq", since_seq)) if v})
+        targets = (enumerate(self.workers) if worker is None
+                   else [(worker, self.workers[worker])])
+        out = []
+        for i, w in targets:
+            entry = {"worker": i, "events": [], "seq": 0}
+            try:
+                lf = protocol.decode_json(
+                    w.call(protocol.LOG_FETCH, req, traced=False))
+                entry["events"] = lf.get("events") or []
+                entry["seq"] = lf.get("seq", 0)
+            except Exception:
+                pass
+            out.append(entry)
+        return out
 
     def profile_worker(self, i, duration_ms=None, kind="auto"):
-        """On-demand worker profiles (the PROFILE tag) are not ported
-        yet."""
-        raise NotImplementedError(
-            "on-demand profiles (obs/profiling.py) are not ported: "
-            "ROADMAP Queue 1, service, store and tooling")
+        """Arm one on-demand profile capture on worker i (PROFILE tag).
+        Returns (meta, blob); raises on an unreachable worker, returns
+        ({"format": "unsupported", ...}, b"") against one that predates
+        the tag. With a tracer armed the capture lands as an obs/profile
+        span on the timeline, linked to its profile:<id>.
+
+        The capture rides a DEDICATED connection (fresh dial, closed
+        after): the cached WorkerHandle stream serializes frames under
+        its call lock, so a capture window there would stall every prove
+        RPC to that worker. Worker-side, the capture blocks only this
+        connection's thread."""
+        t0 = time.time()
+        w = self.workers[i]
+        h = WorkerHandle(w.host, w.port, index=i, metrics=self.metrics)
+        try:
+            raw = h.call(
+                protocol.PROFILE,
+                protocol.encode_json(
+                    {"duration_ms": duration_ms, "kind": kind}),
+                traced=False)
+        except RuntimeError as e:
+            # ERR reply: a worker that predates the tag — degrade, the
+            # caller still gets a well-formed (meta, blob) pair
+            return {"format": "unsupported", "worker": i,
+                    "error": str(e)[:200]}, b""
+        finally:
+            h.close()
+        meta, blob = protocol.decode_result(raw)
+        if self.tracer is not None:
+            from ..obs import profiling as obs_profiling
+            self.tracer.add_event(
+                "obs/profile", time.time() - t0, ts=t0, worker=i,
+                format=meta.get("format"),
+                profile_id=obs_profiling.profile_id(blob)
+                if blob else None)
+        return meta, blob
 
     # -- misc -----------------------------------------------------------------
 

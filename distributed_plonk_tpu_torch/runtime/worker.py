@@ -39,13 +39,29 @@ against another epoch is refused (ERR "stale epoch", counted as
 `stale_epoch`). `--faults RULES` arms the data plane of runtime/faults.py
 (the JAX worker's DPT_FAULTS): a `corrupt:at=data` rule perturbs this
 worker's own MSM / NTT / FFT2 / EVAL results before they are framed.
-Tags of planes the port has not ported (METRICS_FETCH, LOG_FETCH,
-PROFILE) answer ERR "<TAG> not ported".
+
+Observability: a `Metrics` registry (service/metrics.py) holds the
+`served_<tag>` counters and, per kernel stage (msm, ntt, fft1, fft2,
+eval), a `worker_<stage>_s` latency histogram and the
+`kernel_<stage>_gflops` / `mfu_<stage>_pct` gauges of the work model
+(trace.py) against this card's peak; each timed interval ends with the
+result on the host, so it covers the device work. METRICS_FETCH serves
+the snapshot (obs/fleet.py scrapes it), LOG_FETCH the structured-log ring
+(obs/log.py), PROFILE an on-demand capture (obs/profiling.py:
+torch.profiler on the card, the stack sampler on the host).
+
+Calibration: with --store, the worker adopts the store's kernel plan for
+this card at start (store/calibration.py; `--autotune off|load|run`,
+default load: `run` calibrates a plan-less store), and a --join worker
+again after its warm sync, which pulls `autotune:` plans with the bucket
+keys.
 
 Run: python -m distributed_plonk_tpu_torch.runtime.worker <index>
     <network.json> [--device cuda|cpu] [--store DIR] [--faults RULES]
+    [--autotune off|load|run]
   or python -m distributed_plonk_tpu_torch.runtime.worker --join H:P
     [--listen H:P] [--device cuda|cpu] [--store DIR] [--faults RULES]
+    [--autotune off|load|run]
 """
 
 import json
@@ -68,17 +84,16 @@ from ..backend.torch_backend import TorchBackend
 from ..constants import R_MOD, FR_GENERATOR
 from ..fields import fr_inv, fr_root_of_unity
 from ..obs import log as olog
+from ..obs import profiling
 from ..poly import Domain, poly_eval
-from ..trace import NULL_TRACER, Tracer
+from ..service.metrics import Metrics
+from ..trace import (FR_BYTES, FR_MUL_IMADS, NULL_TRACER, Tracer, msm_flops,
+                     ntt_flops)
 
 # resident per-trace span buffers: the dispatcher fetches-and-forgets
 # them via TRACE_DUMP, but a dispatcher that dies mid-prove must not
 # leak its trace buffers forever — LRU cap, oldest trace dropped
 _TRACE_CAP = 32
-
-# wire tags of planes the port has not ported yet (ROADMAP Queue 1)
-NOT_PORTED = frozenset((protocol.METRICS_FETCH, protocol.LOG_FETCH,
-                        protocol.PROFILE))
 
 
 class FftTask:
@@ -137,6 +152,13 @@ class WorkerState:
         self.faults = faults
         self.sdc_injected = 0
         self.warm = None     # warm-rejoin stats (store/remote.warm_sync)
+        # the calibration pickup report (store/calibration.load_or_run)
+        self.autotune = {"source": "off"}
+        # the structured registry served over METRICS_FETCH (served
+        # counters, kernel latency histograms, gauges); the structured
+        # log ring publishes its counters here too
+        self.metrics = Metrics()
+        olog.set_metrics(self.metrics)
         self.started = time.monotonic()
         self.base_sets = {}  # set_id -> bases (a worker can adopt ranges)
         self.lock = threading.Lock()
@@ -163,6 +185,20 @@ class WorkerState:
     def count(self, tag):
         with self.lock:
             self.counters[tag] = self.counters.get(tag, 0) + 1
+        # served_<tag>: what the fleet scraper sums into dpt_fleet_served_*
+        self.metrics.inc("served_" + protocol.tag_name(tag).lower())
+
+    def observe_kernel(self, stage, dur_s, flops=0, data_bytes=0):
+        """Fold one kernel execution into the live per-stage surfaces: a
+        latency histogram, and the kernel_<stage>_gflops / mfu_<stage>_pct
+        gauges of its work model against this card's peak (no mfu_* on
+        the host). `dur_s` must end after the work's result reached the
+        host, or the gauge would time the launch."""
+        self.metrics.observe(f"worker_{stage}_s", dur_s)
+        if flops:
+            self.metrics.observe_kernels(
+                [{"span": stage, "flops": flops, "dur_s": dur_s,
+                  "data_bytes": data_bytes}], device=self.backend.device)
 
     def tracer_for(self, ctx):
         """The per-trace Tracer an incoming traced frame records under
@@ -431,8 +467,12 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         if bases is None:
             conn.send(protocol.ERR, b"no bases for set %d" % set_id)
             return None
-        with tracer.span("msm"):
-            result = state.backend.msm(bases, scalars)
+        work = {"flops": msm_flops(len(scalars)),
+                "data_bytes": len(scalars) * FR_BYTES}
+        t0 = time.perf_counter()
+        with tracer.span("msm", n=len(scalars), **work):
+            result = state.backend.msm(bases, scalars)  # a host point
+        state.observe_kernel("msm", time.perf_counter() - t0, **work)
         if _sdc_due(state, protocol.MSM):
             # a WELL-FORMED wrong answer (on the curve, in the subgroup):
             # only duplicate execution can catch it
@@ -443,7 +483,13 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         values, inverse, coset = protocol.decode_ntt_request(payload)
         with state.lock:
             domain = state.domain(len(values))
-        with tracer.span("ntt"):
+        work = {"flops": ntt_flops(len(values)),
+                "data_bytes": len(values) * FR_BYTES}
+        t0 = time.perf_counter()
+        with tracer.span("ntt", n=len(values), inverse=inverse, coset=coset,
+                         **work):
+            # the int-list API returns host ints: the interval ends after
+            # the device work
             if inverse and coset:
                 out = state.backend.coset_ifft(domain, values)
             elif inverse:
@@ -452,6 +498,7 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                 out = state.backend.coset_fft(domain, values)
             else:
                 out = state.backend.fft(domain, values)
+        state.observe_kernel("ntt", time.perf_counter() - t0, **work)
         if _sdc_due(state, protocol.NTT):
             out = list(out)
             out[0] = (out[0] + 1) % R_MOD  # one flipped field element
@@ -489,8 +536,13 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
             # the FFT2 integrity piggyback's input-side partial is computed
             # over exactly what we received
             task.raw_panels[first_row] = panel
-        with tracer.span("fft1_rows"):
+        work = {"flops": ntt_flops(task.r, count),
+                "data_bytes": count * task.r * FR_BYTES}
+        t0 = time.perf_counter()
+        with tracer.span("fft1_rows", rows=count, r=task.r, **work):
+            # a numpy panel: the interval ends after the device work
             staged = state.stages.stage1_panel(task, first_row, panel)
+        state.observe_kernel("fft1", time.perf_counter() - t0, **work)
         lo = first_row - task.rs
         with task.cols_lock:
             if task.rows_mat is None:
@@ -555,8 +607,14 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                 f"/{task.fill_mask.size})"
             task.result = b""
             if task.ce > task.cs:
-                with tracer.span("fft2_cols"):
+                cols = task.ce - task.cs
+                work = {"flops": ntt_flops(task.c, cols),
+                        "data_bytes": cols * task.c * FR_BYTES}
+                t0 = time.perf_counter()
+                with tracer.span("fft2_cols", cols=cols, c=task.c, **work):
                     staged = state.stages.stage2_panel(task, task.cols)
+                state.observe_kernel("fft2", time.perf_counter() - t0,
+                                     **work)
                 task.result = protocol.encode_scalar_matrix(
                     staged.reshape(16, staged.shape[1] * staged.shape[2]))
             if task.result and _sdc_due(state, protocol.FFT2):
@@ -580,8 +638,13 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         # distributed partial evaluation (round 4 of the fleet prove):
         # sum_i c_i * point^i over the shipped coefficient chunk
         point, chunk = protocol.decode_eval_request(payload)
-        with tracer.span("eval"):
+        # Horner: one Fr product per coefficient
+        work = {"flops": len(chunk) * FR_MUL_IMADS,
+                "data_bytes": len(chunk) * FR_BYTES}
+        t0 = time.perf_counter()
+        with tracer.span("eval", n=len(chunk), **work):
             val = state.backend.eval_h(state.backend.lift(chunk), point)
+        state.observe_kernel("eval", time.perf_counter() - t0, **work)
         if _sdc_due(state, protocol.EVAL):
             val = (val + 1) % R_MOD
         conn.send(protocol.OK, protocol.encode_scalar(val))
@@ -630,9 +693,47 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
         store_remote.serve_list(
             state.store, payload, conn,
             no_store_reason="no store on this worker (--store)")
-    elif tag in NOT_PORTED:
-        conn.send(protocol.ERR,
-                  b"%s not ported" % protocol.tag_name(tag).encode())
+    elif tag == protocol.METRICS_FETCH:
+        # the fleet-scrape surface (obs/fleet.py): this worker's whole
+        # structured registry plus identity fields, one JSON blob
+        snap = state.metrics.snapshot()
+        with state.lock:
+            snap.update({
+                "index": state.me,
+                "epoch": state.epoch,
+                "backend": state.backend.name,
+                "device": str(state.backend.device),
+                "uptime_s": round(time.monotonic() - state.started, 3),
+                "sdc_injected": state.sdc_injected,
+                "fft_tasks": len(state.fft_tasks),
+                "base_sets": len(state.base_sets),
+                "traces": len(state.traces),
+                "log_seq": olog.buffer().seq,
+                "autotune": state.autotune,
+            })
+        conn.send(protocol.OK, json.dumps(snap).encode())
+    elif tag == protocol.LOG_FETCH:
+        # structured-log ring fetch (obs/log.py), optionally filtered to
+        # one trace id or tailed from since_seq; reads never clear it
+        req = protocol.decode_json(payload)
+        out = olog.fetch(trace_id=req.get("trace_id"),
+                         since_seq=int(req.get("since_seq") or 0),
+                         limit=req.get("limit"))
+        conn.send(protocol.OK, json.dumps(out).encode())
+    elif tag == protocol.PROFILE:
+        # on-demand capture (obs/profiling.py): torch.profiler on the
+        # card, the stack sampler on the host. It blocks only this
+        # connection's thread; the kernels other connections run are what
+        # it records. The reply is header + blob, as STORE_FETCH's.
+        req = protocol.decode_json(payload)
+        meta, blob = profiling.capture(
+            duration_ms=req.get("duration_ms"),
+            kind=req.get("kind", "auto"), device=state.backend.device)
+        meta["worker"] = state.me
+        state.metrics.inc("profiles_captured")
+        olog.emit("worker", "profile_captured", worker=state.me,
+                  format=meta.get("format"), bytes=len(blob))
+        conn.send(protocol.OK, protocol.encode_result(meta, blob))
     elif tag == protocol.SHUTDOWN:
         conn.send(protocol.OK)
         return False
@@ -680,28 +781,59 @@ def _make_state(device, store_dir, faults, **kw):
     return WorkerState(backend, stages, store=store, faults=injector, **kw)
 
 
+def _load_calibration(state, mode):
+    """Adopt the store's kernel plan for this card (store/calibration.py;
+    mode off|load|run) and record the report in state.autotune (served
+    in METRICS_FETCH). Without a store there is nothing to load. A plan
+    only changes launch arguments, so a failure leaves the built-in
+    constants in force: it is recorded as {"source": "error", ...} and
+    logged, never hidden and never fatal."""
+    if state.store is None:
+        return state.autotune
+    from ..store import calibration
+    try:
+        rep = calibration.load_or_run(state.store, mode=mode,
+                                      metrics=state.metrics,
+                                      device=state.backend.device)
+    except Exception as e:  # noqa: BLE001 - see the docstring
+        rep = {"source": "error", "error": repr(e)[:300]}
+        olog.emit("worker", "calibration_failed", level="warn",
+                  worker=state.me, error=rep["error"])
+    state.autotune = rep
+    olog.emit("worker", "calibration", worker=state.me,
+              source=rep.get("source"), cells=rep.get("cells"))
+    return rep
+
+
 def serve(index, config, device=None, ready_event=None, store_dir=None,
-          faults=None):
+          faults=None, autotune="load"):
     """Static-fleet daemon: index and config fixed at startup (epoch 0)."""
     host, port = config.workers[index]
     state = _make_state(device, store_dir, faults, config=config, me=index)
+    _load_calibration(state, autotune)
     listener = native.Listener(host, port)
     _run_server(listener, state, ready_event=ready_event)
 
 
 def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
-                 store_dir=None, faults=None, ready_event=None):
+                 store_dir=None, faults=None, ready_event=None,
+                 autotune="load"):
     """Dynamic-membership daemon (`--join host:port`): build the backend
     (a worker that cannot reach its device raises before it joins), bind
     (port 0 = ephemeral), announce to the membership server, adopt the
     returned index, epoch and roster, and serve. Then warm-rejoin in the
-    background: pull the roster's store peers' `bucket:` artifacts
-    (store/remote.warm_sync) so a replacement worker finds its keys
-    without a rebuild, and report the stats (JOIN phase=ready; HEALTH's
-    `warm`). The worker is schedulable from the JOIN reply; the sync only
-    speeds up first touches, it gates nothing."""
+    background: pull the roster's store peers' `bucket:` and `autotune:`
+    artifacts (store/remote.warm_sync) so a replacement worker finds its
+    keys and this card's kernel plan without a rebuild, adopt the plan,
+    and report the stats (JOIN phase=ready; HEALTH's `warm`). The worker
+    is schedulable from the JOIN reply; the sync only speeds up first
+    touches, it gates nothing. Before the sync the worker only LOADS a
+    local plan: a joiner must not spend its start measuring when a peer
+    may hold this card's plan; `autotune` applies after the sync."""
     from . import membership
+    from ..backend import autotune as _autotune
     state = _make_state(device, store_dir, faults)
+    _load_calibration(state, "load" if autotune != "off" else "off")
     host, port = listen_addr
     listener = native.Listener(host, port)
     port = port or native.listener_port(listener)
@@ -724,6 +856,8 @@ def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
         if state.store is not None and peers:
             stats = store_remote.warm_sync(
                 state.store, [(h, int(p)) for h, p in peers])
+        if _autotune.active_plan() is None:
+            _load_calibration(state, autotune)
         state.warm = stats
         olog.emit("worker", "warm_rejoin", worker=state.me, **stats)
         if state.store is not None:
@@ -751,7 +885,8 @@ def _parse_hostport(s):
 
 USAGE = ("usage: python -m distributed_plonk_tpu_torch.runtime.worker "
          "(<index> <network.json> | --join H:P [--listen H:P]) "
-         "[--device cuda|cpu] [--store DIR] [--faults RULES]")
+         "[--device cuda|cpu] [--store DIR] [--faults RULES] "
+         "[--autotune off|load|run]")
 
 
 def main(argv):
@@ -760,18 +895,23 @@ def main(argv):
     faults, argv = _pop_flag(argv, "--faults")
     join, argv = _pop_flag(argv, "--join")
     listen, argv = _pop_flag(argv, "--listen")
+    autotune, argv = _pop_flag(argv, "--autotune")
+    autotune = autotune or "load"
+    if autotune not in ("off", "load", "run"):
+        raise SystemExit(USAGE)
     if join is not None:
         if argv:
             raise SystemExit(USAGE)
         serve_joined(_parse_hostport(join),
                      _parse_hostport(listen) if listen
                      else ("127.0.0.1", 0),
-                     device, store_dir=store_dir, faults=faults)
+                     device, store_dir=store_dir, faults=faults,
+                     autotune=autotune)
         return
     if len(argv) != 2 or listen is not None:
         raise SystemExit(USAGE)
     serve(int(argv[0]), NetworkConfig.load(argv[1]), device,
-          store_dir=store_dir, faults=faults)
+          store_dir=store_dir, faults=faults, autotune=autotune)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,10 @@ An `Autoscaler` ticks every `tick_s` seconds:
             standard-class roundtrip p95 from the metrics registry, the
             fleet's width / usable / suspects from the dispatcher's
             liveness tracker (a service attached to a membership
-            registry), and the supervised worker count. The mean kernel
-            MFU (`mfu_pct`) reads None: the port's kernel MFU gauges are
-            not ported, and no TPU peak enters.
+            registry), the supervised worker count, and the mean of the
+            `mfu_*` gauges (`mfu_pct`: the kernel stages' share of the
+            card's own peak, service/metrics.py; None until a prove on
+            the card has published one).
   control   hysteresis streaks + cooldown windows + min/max bounds:
             scale UP (WorkerSupervisor.add_slot: a warm membership JOIN)
             after `up_ticks` consecutive breach ticks (queue depth per
@@ -188,7 +189,10 @@ class Autoscaler:
         h = snap["histograms"].get("slo_roundtrip/standard")
         if h and h.get("count"):
             out["p95_standard_s"] = h.get("p95_s")
-        # mfu_pct stays None: the kernel MFU gauges are not ported
+        mfu = [v for k, v in snap["gauges"].items()
+               if k.startswith("mfu_") and isinstance(v, (int, float))]
+        if mfu:
+            out["mfu_pct"] = round(sum(mfu) / len(mfu), 3)
         d = svc.fleet_dispatcher
         if d is not None:
             try:

@@ -1,6 +1,6 @@
 """Service observability: counters, gauges, latency histograms, exposition
-(a copy of the JAX package's service/metrics.py, minus its kernel MFU
-gauges: the port's prover spans carry no flop counts).
+(a copy of the JAX package's service/metrics.py; its kernel gauges count
+32-bit integer multiply-adds against the card's own peak).
 
 The structured upgrade of the worker plane's raw `{tag: count}` STATS
 counters (runtime/worker.py) for the serving layer: one `Metrics` registry
@@ -156,6 +156,71 @@ Tracing vocabulary (trace.py, service/pool.py, ObsServer):
     log_events / log_dropped                 structured log events
                                              recorded into the ring /
                                              ring-capacity overwrites
+    kernel_*_gflops / mfu_*_pct (gauges)     live per-stage throughput
+                                             from the work model of
+                                             trace.py, in G IMAD/s (32-bit
+                                             integer multiply-adds per
+                                             second, the unit of the
+                                             card's integer peak), and
+                                             its share of the card's peak
+                                             (observe_kernels; mfu_* only
+                                             where a peak is known: never
+                                             on the CPU)
+
+Fleet observability vocabulary (obs/fleet.py, runtime/worker.py
+METRICS_FETCH / LOG_FETCH / PROFILE, service/server.py):
+    served_*                                 worker-side request counters
+                                             per wire tag (served_msm,
+                                             served_fft2, ...)
+    worker_*_s (histograms)                  worker-side kernel latency
+                                             per stage (worker_msm_s,
+                                             worker_ntt_s, worker_fft1_s,
+                                             worker_fft2_s, worker_eval_s),
+                                             each ending in the transfer
+                                             of its result to the host
+    fleet_scrapes                            METRICS_FETCH scrape cycles
+                                             completed by the aggregator
+    fleet_scrape_errors                      scrape cycles that failed
+                                             whole (fan-out error)
+    fleet_width / fleet_reachable (gauges)   roster size vs members that
+                                             answered the last scrape
+    fleet_suspects / fleet_breakers_open (gauges)  quarantined members /
+                                             open breakers at last scrape
+    fleet_served_total / fleet_serve_errors_total (gauges)  fleet-summed
+                                             request counters from the
+                                             last scrape
+    mfu_fleet_*_pct (gauges)                 per kernel stage, the mean
+                                             over the scraped workers of
+                                             their mfu_<stage>_pct
+    profiles_captured                        PROFILE captures served by
+                                             this worker
+    profiles_stored                          profile:<id> artifacts
+                                             persisted by the service
+    profile_errors                           captures that failed or came
+                                             back empty/unsupported
+
+Kernel-autotune vocabulary (backend/autotune.py, store/calibration.py):
+    autotune_runs                            calibration measure passes
+                                             started (mode=run on a
+                                             plan-less store)
+    autotune_cells                           (kind, domain-size) cells
+                                             decided by a pass
+    autotune_measure_runs                    candidate configurations
+                                             measured (incl. the parity
+                                             reference per cell)
+    autotune_candidate_errors                candidates that failed to
+                                             run (skipped)
+    autotune_parity_rejects                  fast-but-WRONG candidates
+                                             rejected by the bit-identity
+                                             gate (never adopted)
+    autotune_run_s (histogram)               wall-clock per measure pass
+    autotune_plan_stores / autotune_plan_loads  plan artifacts persisted
+                                             to / adopted from the store
+    autotune_plan_source (gauge)             off|none|store|fresh — where
+                                             this process's plan came from
+    autotune_plan_cells (gauge)              cells in the active plan
+    autotune_plan_revision (gauge)           process-wide plan revision
+                                             (bumps on every reload)
 
 Per-class serving outcomes (service/pool.py, service/server.py):
     slo_roundtrip/<class> (histogram)        submit -> done seconds per
@@ -195,8 +260,12 @@ service/server.py AGGREGATE path):
 import math
 import random
 import re
+import shutil
+import subprocess
 import threading
 import time
+
+from ..trace import IMAD_PER_SM_CLOCK
 
 _RESERVOIR = 2048
 
@@ -255,6 +324,68 @@ def _prom_name(name):
     return "dpt_" + re.sub(r"[^a-zA-Z0-9_]", "_", name)
 
 
+_PEAKS = {}
+_PEAKS_LOCK = threading.Lock()
+
+
+def _max_sm_clock_hz(uuid):
+    """The maximum SM clock `nvidia-smi` reports for the card whose UUID
+    is `uuid`, in Hz; None when nvidia-smi is absent or names no such
+    card."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return None
+    try:
+        out = subprocess.run(
+            [smi, "--query-gpu=uuid,clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].lower().endswith(uuid.lower()):
+            try:
+                return float(parts[1]) * 1e6
+            except ValueError:
+                return None
+    return None
+
+
+def device_peak(device):
+    """The card's own peak of 32-bit integer multiply-adds per second:
+    SMs (torch.cuda.get_device_properties) x IMADs per SM per clock of
+    its compute capability (trace.IMAD_PER_SM_CLOCK) x the maximum SM
+    clock nvidia-smi reports. None on the CPU, for a compute capability
+    without a known rate, or when the clock cannot be read: no gauge is
+    then published against an invented peak. Computed once per device."""
+    import torch
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return None
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _PEAKS_LOCK:
+        if index not in _PEAKS:
+            props = torch.cuda.get_device_properties(index)
+            rate = IMAD_PER_SM_CLOCK.get((props.major, props.minor))
+            clock = _max_sm_clock_hz(str(props.uuid)) if rate else None
+            _PEAKS[index] = (props.multi_processor_count * rate * clock
+                             if clock else None)
+        return _PEAKS[index]
+
+
+def backend_peak(backend):
+    """The IMAD/s peak of the cards a backend computes on: its device's,
+    or the sum over a mesh's distinct devices. None when any of them has
+    no known peak (the host, a fleet's RemoteBackend)."""
+    mesh = getattr(backend, "mesh", None)
+    devs = set(mesh.devices) if mesh is not None \
+        else {getattr(backend, "device", None)}
+    peaks = [device_peak(d) for d in devs]
+    return sum(peaks) if peaks and all(peaks) else None
+
+
 class Metrics:
     def __init__(self):
         self._lock = threading.Lock()
@@ -290,6 +421,32 @@ class Metrics:
         (keys like round1..round5, checkpoint_save)."""
         for span, dur in totals.items():
             self.observe(f"prove_round/{span}", dur)
+
+    def observe_kernels(self, events, peak=None, device=None):
+        """Fold the events of kernel work carrying a `flops` attribute
+        (trace.Tracer events of a finished prove, or a fleet worker's
+        kernel timings) into per-stage gauges, the stage being the last
+        segment of the span name: kernel_<stage>_gflops (G IMAD/s: the
+        work model of trace.py over the event's seconds) and
+        mfu_<stage>_pct (that rate over `peak` IMAD/s; default: the peak
+        of `device`, device_peak). With no peak (the CPU) only the
+        gflops gauge is published."""
+        if peak is None:
+            peak = device_peak(device)
+        for ev in events:
+            flops = ev.get("flops")
+            dur = ev.get("dur_s")
+            if not flops or not dur:
+                continue
+            stage = re.sub(r"[^a-zA-Z0-9_]", "_",
+                           ev["span"].rsplit("/", 1)[-1])
+            # six significant digits: a stage far below the peak must not
+            # round to a zero share
+            self.gauge(f"kernel_{stage}_gflops",
+                       float("%.6g" % (flops / dur / 1e9)))
+            if peak:
+                self.gauge(f"mfu_{stage}_pct",
+                           float("%.6g" % (100.0 * flops / (dur * peak))))
 
     def snapshot(self):
         with self._lock:

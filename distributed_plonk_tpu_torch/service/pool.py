@@ -51,6 +51,7 @@ from ..proof_io import serialize_proof
 from ..trace import Tracer
 from . import jobs as J
 from . import journal as JN
+from .metrics import backend_peak
 
 # verify-before-serve mode when the caller gives none (the JAX package's
 # DPT_SELF_VERIFY default)
@@ -826,6 +827,10 @@ class WorkerPool:
         # service's own events (service/queued, ...) are not rounds
         totals = {k: v for k, v in tracer.totals().items() if "/" not in k}
         self.metrics.observe_rounds(totals)
+        # the kernel work the prove's events carry (prover.py): per-stage
+        # throughput and share of the peak of the cards it proved on
+        self.metrics.observe_kernels(tracer.events,
+                                     peak=backend_peak(backend))
         proof_bytes = serialize_proof(proof)
         pub = ckt.public_input()
         if self.faults is not None and self.faults.on_proof(job.id):

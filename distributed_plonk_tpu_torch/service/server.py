@@ -32,9 +32,14 @@ store-serving members as bucket-cache peers, and `attach_autoscaler`
 arms the closed-loop autoscaler (service/autoscale.py) over a
 WorkerSupervisor.
 
-Not ported (each raises NotImplementedError where the API reaches it):
-fleet metrics and profiles (attach_fleet, profile_fleet_worker), and the
-kernel-calibration pickup (`autotune` reads {"source": "not_ported"}).
+Observability and calibration: `attach_fleet` scrapes a worker fleet's
+metrics on an interval (obs/fleet.py) for ObsServer's /metrics and
+/fleet; `profile_fleet_worker` stores one worker's on-demand capture as
+a profile:<id> artifact (/profile/<id>); the pool folds every finished
+prove's kernel events into the kernel_*_gflops / mfu_*_pct gauges. With
+a store, `start()` first adopts the store's kernel plan for this card
+(store/calibration.py, `autotune="off"|"load"|"run"`) and reports it in
+`autotune`.
 """
 
 import os
@@ -64,7 +69,7 @@ class ProofService:
                  store_dir=None, store_byte_budget=None, bucket_cap=64,
                  store_peers=None, faults=None, journal_dir=None,
                  devices=None, mesh_backend_factory=None,
-                 self_verify=None, device=None):
+                 self_verify=None, device=None, autotune="load"):
         # the service's device: None is the card (raises without one)
         self.device = resolve_device(device, "ProofService")
         self.host = host
@@ -124,10 +129,18 @@ class ProofService:
             self.queue, self.pool, self.metrics, buckets=self.buckets,
             max_batch=max_batch, devices=devices,
             mesh_backend_factory=mesh_backend_factory, device=self.device)
-        # kernel-calibration pickup (the JAX package's store/calibration.py
-        # with backend/autotune.py) is not ported: every kernel path runs
-        # its built-in configuration
-        self.autotune = {"source": "not_ported"}
+        # kernel-calibration pickup report (store/calibration.py), filled
+        # by start(): {"source": off|none|store|fresh|error, ...}. Without
+        # a store (or with autotune="off") no plan is loaded and every
+        # kernel path keeps its built-in constants.
+        self.autotune = {"source": "off"}
+        self._autotune_mode = autotune
+        # fleet observability (obs/fleet.py): attach_fleet() arms the
+        # interval scraper behind /fleet and the dpt_fleet_* series;
+        # profile captures land under profile:<id> (or, without a store,
+        # in a small table)
+        self.fleet = None
+        self._profiles = {}
         # built aggregate artifacts: storeless fallback table
         # agg_id -> JSON blob bytes, restored from the journal's AGG
         # records at recovery; store-backed services serve from
@@ -181,10 +194,22 @@ class ProofService:
         self.fleet_dispatcher = registry.d
         return self
 
-    def attach_fleet(self, dispatcher, interval_s=None, start=True):
-        """Fleet metrics scraping (obs/fleet.py): not ported."""
-        raise NotImplementedError("attach_fleet: fleet observability "
-                                  "not ported")
+    def attach_fleet(self, dispatcher, interval_s=5.0, start=True):
+        """Arm the fleet observability plane (obs/fleet.py) for a service
+        whose backend proves on a worker fleet: an interval scraper pulls
+        every roster member's METRICS_FETCH snapshot, folds fleet
+        aggregates into this registry, and keeps the latest per-worker
+        snapshots for ObsServer's /metrics (labelled dpt_fleet_* series)
+        and /fleet; profile_fleet_worker becomes available. The scraper
+        walks the dispatcher's current worker list each cycle, so joins
+        and leaves show at the next scrape."""
+        from ..obs.fleet import FleetScraper
+        self.fleet_dispatcher = dispatcher
+        self.fleet = FleetScraper(dispatcher, self.metrics,
+                                  interval_s=interval_s)
+        if start:
+            self.fleet.start()
+        return self
 
     def attach_autoscaler(self, supervisor=None, mode="0", **kw):
         """Arm the closed-loop autoscaler (service/autoscale.py): mode "0"
@@ -199,10 +224,42 @@ class ProofService:
 
     def profile_fleet_worker(self, worker=0, duration_ms=None,
                              kind="auto"):
-        """On-demand fleet-worker profiles (obs/profiling.py): not
-        ported."""
-        raise NotImplementedError("profile_fleet_worker: profiling not "
-                                  "ported")
+        """On-demand profile of one fleet worker (PROFILE wire tag): the
+        capture lands as a content-addressed profile:<id> artifact
+        (store-backed when the service has one, else a small in-memory
+        table) served at /profile/<id>. Returns the capture's meta with
+        its "profile_id" (None for an empty capture, counted as
+        profile_errors). Raises RuntimeError without an attached fleet."""
+        if self.fleet_dispatcher is None:
+            raise RuntimeError("no fleet attached (attach_fleet)")
+        from ..obs import profiling
+        meta, blob = self.fleet_dispatcher.profile_worker(
+            worker, duration_ms=duration_ms, kind=kind)
+        if not blob:
+            self.metrics.inc("profile_errors")
+            return dict(meta, profile_id=None)
+        pid = profiling.profile_id(blob)
+        meta = dict(meta, profile_id=pid)
+        if self.store is not None:
+            from ..store import keycache as KC
+            KC.store_profile(self.store, pid, blob, meta)
+        else:
+            self._profiles[pid] = (meta, blob)
+            while len(self._profiles) > 8:  # bounded fallback table
+                self._profiles.pop(next(iter(self._profiles)))
+        self.metrics.inc("profiles_stored")
+        olog.emit("obs", "profile_stored", worker=worker,
+                  profile_id=pid, format=meta.get("format"))
+        return meta
+
+    def load_profile(self, profile_id):
+        """(meta, blob) for one stored capture, or None."""
+        if self.store is not None:
+            from ..store import keycache as KC
+            hit = KC.load_profile(self.store, profile_id)
+            if hit is not None:
+                return hit
+        return self._profiles.get(profile_id)
 
     # -- batch-KZG proof aggregation (aggregate.py) ----------------------------
 
@@ -572,7 +629,23 @@ class ProofService:
 
     def start(self):
         """Start scheduler + listener threads; returns self. With port=0
-        an ephemeral port is chosen and published as `self.port`."""
+        an ephemeral port is chosen and published as `self.port`.
+
+        The kernel-plan pickup runs first (store/calibration.py), before
+        the pool's threads start: a calibrated store's plan is adopted
+        before any job launches a kernel, and a second start against it
+        measures nothing. A failed pickup leaves the built-in constants
+        in force and says so in `autotune` ({"source": "error", ...})."""
+        if self.store is not None:
+            from ..store import calibration
+            try:
+                self.autotune = calibration.load_or_run(
+                    self.store, mode=self._autotune_mode,
+                    metrics=self.metrics, device=self.device)
+            except Exception as e:  # noqa: BLE001 - see the docstring
+                self.autotune = {"source": "error", "error": repr(e)}
+                olog.emit("service", "calibration_failed", level="warn",
+                          error=repr(e)[:300])
         self._recover()
         self.scheduler.start()
         self._listener = native.Listener(self.host, self.port)
@@ -606,6 +679,8 @@ class ProofService:
     def shutdown(self):
         if self.autoscaler is not None:
             self.autoscaler.close()
+        if self.fleet is not None:
+            self.fleet.close()
         self.scheduler.stop()
         self.pool.shutdown()
         if self._listener is not None:
@@ -630,6 +705,8 @@ class ProofService:
         clean = self.pool.drain(deadline)
         self.metrics.inc("drain_clean" if clean else "drain_forced")
         olog.emit("service", "drain", clean=bool(clean))
+        if self.fleet is not None:
+            self.fleet.close()
         if self._listener is not None:
             self._listener.close()
         if self.journal is not None:
@@ -650,6 +727,8 @@ class ProofService:
         self.queue.close()
         self.scheduler.crash()
         self.pool.crash()
+        if self.fleet is not None:
+            self.fleet.close()
         if self._listener is not None:
             self._listener.close()
         self._stopped.set()
@@ -838,11 +917,20 @@ class ObsServer:
                          JSON (load in chrome://tracing / Perfetto);
                          ?raw=1 returns the lossless merged dump instead
         /autoscale       the attached autoscaler's state() (404 when off)
+        /fleet           JSON snapshot of an attached fleet: roster with
+                         per-member breaker/suspect state and each
+                         member's metrics snapshot (404 without a fleet)
+        /profile/<id>    one stored on-demand capture (profile:<id>:
+                         a gzipped Chrome trace or pystacks JSON)
+        /profile/capture?worker=N&ms=M  arm a capture on fleet worker N
+                         and store it; answers its meta with "profile_id"
 
-    The JAX package's /fleet and /profile endpoints answer 404 "not
-    ported". A separate listener from the proof-service wire
-    plane: scrapers and dashboards must not compete with SUBMIT/RESULT
-    frames, and plain HTTP means curl/Prometheus need no custom codec."""
+    With an attached fleet, /metrics also carries the labelled
+    per-worker dpt_fleet_* series of the latest scrape. A separate
+    listener from the proof-service wire plane: scrapers and dashboards
+    must not compete with SUBMIT/RESULT frames, and plain HTTP means
+    curl/Prometheus need no custom codec. Read-only except
+    /profile/capture."""
 
     def __init__(self, service, host="127.0.0.1", port=0):
         import http.server
@@ -890,9 +978,6 @@ def _query_params(query):
             urllib.parse.parse_qs(query, keep_blank_values=True).items()}
 
 
-_NOT_PORTED_PATHS = ("/fleet", "/profile")
-
-
 def _obs_route(svc, path):
     """(status, content_type, body bytes) for one observability GET."""
     from ..trace import to_chrome_trace
@@ -902,6 +987,9 @@ def _obs_route(svc, path):
             "queue_depth": svc.queue.depth(),
             "queue_high_water": svc.queue.high_water,
         })
+        if svc.fleet is not None:
+            # the labelled per-worker series of the latest fleet scrape
+            text += svc.fleet.render()
         return 200, "text/plain; version=0.0.4; charset=utf-8", \
             text.encode()
     if path == "/healthz":
@@ -930,6 +1018,36 @@ def _obs_route(svc, path):
                 {"error": "autoscaler off (ProofService.attach_autoscaler "
                           "with mode dry or 1)"})
         return 200, "application/json", protocol.encode_json(asc.state())
+    if path == "/fleet":
+        if svc.fleet is None:
+            return 404, "application/json", protocol.encode_json(
+                {"error": "no fleet attached (ProofService.attach_fleet)"})
+        out = svc.fleet.fleet_json(extra={
+            "queue_depth": svc.queue.depth(),
+            "draining": svc.queue.closed(),
+        })
+        return 200, "application/json", protocol.encode_json(out)
+    if path == "/profile/capture":
+        q = _query_params(query)
+        try:
+            meta = svc.profile_fleet_worker(
+                worker=int(q.get("worker") or 0),
+                duration_ms=int(q["ms"]) if q.get("ms") else None,
+                kind=q.get("kind") or "auto")
+        except (RuntimeError, ValueError, ConnectionError, OSError) as e:
+            return 400, "application/json", protocol.encode_json(
+                {"error": repr(e)})
+        return 200, "application/json", protocol.encode_json(meta)
+    if path.startswith("/profile/"):
+        pid = path[len("/profile/"):]
+        hit = svc.load_profile(pid)
+        if hit is None:
+            return 404, "application/json", protocol.encode_json(
+                {"error": f"no profile {pid!r}"})
+        meta, blob = hit
+        ctype = "application/gzip" \
+            if meta.get("format") == "torch-trace-gz" else "application/json"
+        return 200, ctype, blob
     if path == "/logs":
         q = _query_params(query)
         out = olog.fetch(trace_id=q.get("trace_id") or None,
@@ -946,10 +1064,8 @@ def _obs_route(svc, path):
             return 200, "application/json", protocol.encode_json(merged)
         return 200, "application/json", \
             protocol.encode_json(to_chrome_trace(merged))
-    if path.startswith(_NOT_PORTED_PATHS):
-        return 404, "application/json", protocol.encode_json(
-            {"error": f"{path} not ported"})
     return 404, "application/json", protocol.encode_json(
         {"error": f"unknown path {path!r}",
-         "endpoints": ["/metrics", "/healthz", "/autoscale", "/logs",
-                       "/trace/<job_id>"]})
+         "endpoints": ["/metrics", "/healthz", "/fleet", "/autoscale",
+                       "/logs", "/trace/<job_id>", "/profile/<id>",
+                       "/profile/capture"]})

@@ -4,16 +4,18 @@ copy of the JAX package's store/, with the same blob formats):
     artifacts.py    content-addressed on-disk store: SHA-256 integrity,
                     atomic writes, versioned manifest, LRU byte budget
     keycache.py     SRS/proving-key/verifying-key <-> blob serialization
-                    (the JAX package's bytes), plus finished-proof, trace
-                    and aggregate artifacts
+                    (the JAX package's bytes), plus finished-proof, trace,
+                    aggregate and profile artifacts
     remote.py       STORE_FETCH / STORE_LIST: pull blobs from a peer
-                    (digest-verified) and serve them
+                    (digest-verified) and serve them; warm_sync of the
+                    `bucket:` and `autotune:` artifacts
     warmstart.py    shape warmup: keys through the tiers, prover stages
                     through TorchBackend.warm_stages
+    calibration.py  kernel plans (backend/autotune.py) per card under
+                    `autotune:<fingerprint>`; load_or_run at start-up
 
 Not ported: the JAX compile cache under the store (the port's counterpart,
-the nvcc build directory as an artifact, is still to come) and
-calibration.py (kernel-autotune plans).
+the nvcc build directory as an artifact, is still to come).
 
 Consumers: service.scheduler.BucketCache (memory -> disk -> build tiers),
 the WARMUP and STORE_FETCH wire tags (service/server.py), the port's

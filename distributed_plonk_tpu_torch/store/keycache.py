@@ -159,6 +159,32 @@ def load_aggregate(store, agg_id):
     return blob, meta
 
 
+# -- on-demand profile artifacts (obs/profiling.py) ---------------------------
+# One PROFILE capture (a torch-trace-gz Chrome trace, or the pystacks JSON
+# of the sampler) joins the content-addressed surface: profile:<id> where
+# <id> is the blob's own digest prefix, served at /profile/<id>.
+
+def profile_store_key(profile_id):
+    return f"profile:{profile_id}"
+
+
+def store_profile(store, profile_id, blob, meta=None):
+    """Persist one capture blob; returns its content digest."""
+    m = {"kind": "profile", "profile_id": profile_id}
+    m.update({k: v for k, v in (meta or {}).items()
+              if isinstance(v, (int, float, str, bool))})
+    return store.put(profile_store_key(profile_id), blob, meta=m)
+
+
+def load_profile(store, profile_id):
+    """-> (meta, blob), or None (evicted / integrity failure)."""
+    hit = store.get_entry(profile_store_key(profile_id))
+    if hit is None:
+        return None
+    blob, _digest, meta = hit
+    return meta, blob
+
+
 def _fr_vector_bytes(poly):
     """Canonical LE Fr coefficients, 32 bytes each (one join over the
     vector: the v2 key holds 18 x 2^18 of them)."""

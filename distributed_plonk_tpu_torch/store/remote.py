@@ -138,9 +138,10 @@ def list_keys(host, port, prefix="", timeout_ms=10000):
 
 # artifact-key prefixes a joining worker pulls from roster peers: bucket
 # keys carry the SRS and the proving/verifying keys (keycache.py layout),
-# the expensive state to rebuild. Checkpoints and proofs stay
+# the expensive state to rebuild, and autotune plans the measured kernel
+# parameters per card (store/calibration.py). Checkpoints and proofs stay
 # fetch-on-demand (they are job-scoped, not shape-scoped).
-WARM_SYNC_PREFIXES = ("bucket:",)
+WARM_SYNC_PREFIXES = ("bucket:", "autotune:")
 
 
 def warm_sync(store, peers, prefixes=WARM_SYNC_PREFIXES, timeout_ms=10000):

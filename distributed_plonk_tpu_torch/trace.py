@@ -25,6 +25,21 @@ placement on the queue-wait span). A tracer made with a `parent_id` (a
 client's span, adopted by the service) links its root spans to it.
 `to_chrome_trace` renders a merged timeline for chrome://tracing or
 Perfetto (the service's /trace endpoint).
+
+The work model (`ntt_flops`, `msm_flops`): spans of kernel work carry
+`flops` and `data_bytes` attributes (the JAX package's keys), which
+service/metrics.Metrics.observe_kernels folds into per-stage throughput
+and utilisation gauges. The port counts 32-bit integer multiply-adds
+(IMAD), the unit of the card's integer peak: a 32 x 32 -> 64-bit product
+is two of them, and a Montgomery product of L words by word-level CIOS
+is 2 (2 L^2 + L). Field additions, comparisons and data movement are not
+counted; `data_bytes` is the 32-byte elements a span's work reads.
+
+Device annotation: `Tracer(annotate=True)` opens a
+`torch.profiler.record_function` and an NVTX range named by the span
+around each span, so a `profile_to` capture or an NVTX timeline
+shows the prover's spans above the kernels they launched. Off by
+default.
 """
 
 import os
@@ -32,7 +47,80 @@ import secrets
 import socket
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext, ExitStack
+
+# --- the work model ------------------------------------------------------
+
+# 32-bit integer multiply-adds per SM per clock on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput)
+IMAD_PER_SM_CLOCK = {(9, 0): 64}
+FR_MUL_IMADS = 2 * (2 * 8 * 8 + 8)      # word-level CIOS, 8 words
+FQ_MUL_IMADS = 2 * (2 * 12 * 12 + 12)   # 12 words
+FR_BYTES = 32
+MSM_WINDOWS = 37        # signed c = 7 windows over 256-bit scalars
+MSM_BUCKETS = 64        # buckets per window (|digit| - 1)
+MSM_CHUNK = 32          # sorted points per bucket_sums thread (default)
+MIXED_ADD_FQ_MULS = 11  # RCB15 mixed add (the bucket accumulation)
+FULL_ADD_FQ_MULS = 12   # RCB15 full add (chunk tree, tail)
+
+
+def ntt_flops(n, count=1):
+    """IMADs of `count` n-point radix-2 NTTs: (n / 2) log2 n butterflies,
+    one Fr product each. The coset and 1/n scales and the twiddles
+    between passes are not counted."""
+    if n < 2:
+        return 0
+    return count * (n // 2) * (n.bit_length() - 1) * FR_MUL_IMADS
+
+
+def msm_flops(n_points, count=1):
+    """IMADs of `count` n-point MSMs by the signed c = 7 Pippenger of
+    backend/msm_torch.py: one mixed add per (point, window) into its
+    bucket, the pairwise tree over each bucket's chunks of MSM_CHUNK
+    points (full adds), and the tail's full adds (msm_tail: 8 segments of
+    8 columns, the segment running sums, their doublings and the tree).
+    Digits that are zero (skipped) are counted as adds."""
+    per_bucket = -(-n_points * MSM_WINDOWS // MSM_BUCKETS)
+    tree = MSM_BUCKETS * max(0, -(-per_bucket // MSM_CHUNK) - 1)
+    S, L = 8, MSM_BUCKETS // 8
+    tail = 2 * S * (L - 1) + 2 * (S - 2) + (L.bit_length() - 1) + S
+    return count * (n_points * MSM_WINDOWS * MIXED_ADD_FQ_MULS
+                    + (tree + tail) * FULL_ADD_FQ_MULS) * FQ_MUL_IMADS
+
+
+# --- profiler hooks ------------------------------------------------------
+
+def annotate(path):
+    """A context that names the enclosed device work `path` on a
+    torch.profiler capture (record_function) and on an NVTX timeline."""
+    import torch
+    stack = ExitStack()
+    stack.enter_context(torch.profiler.record_function(path))
+    if torch.cuda.is_available():
+        stack.enter_context(torch.cuda.nvtx.range(path))
+    return stack
+
+
+@contextmanager
+def profile_to(log_dir):
+    """Capture a torch.profiler trace (CPU activity, and CUDA activity
+    when the card is visible) of the enclosed block into `log_dir` as a
+    Chrome trace (`trace.json`, viewable in chrome://tracing or
+    Perfetto). The device is synchronized before the capture stops, so
+    kernels enqueued inside the block are in the trace. Yields the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def new_trace_id():
@@ -46,8 +134,10 @@ def new_span_id():
 
 
 class Tracer:
-    def __init__(self, trace_id=None, parent_id=None, proc=None):
+    def __init__(self, trace_id=None, parent_id=None, proc=None,
+                 annotate=False):
         self.trace_id = trace_id or new_trace_id()
+        self.annotate = annotate  # name spans on a profiler / NVTX timeline
         self.parent_id = parent_id    # remote parent span (adopted ctx)
         self.proc = proc or "main"
         self.host = socket.gethostname()
@@ -84,7 +174,8 @@ class Tracer:
         stack.append(sid)
         t0 = time.perf_counter()
         try:
-            yield sid
+            with (annotate(name) if self.annotate else nullcontext()):
+                yield sid
         finally:
             dur = time.perf_counter() - t0
             stack.pop()
@@ -97,13 +188,16 @@ class Tracer:
                 ev.update(attrs)
             self._record(ev)
 
-    def add_event(self, name, dur_s=None, ts=None, **attrs):
-        """A span of dur_s seconds at the calling thread's current depth,
-        starting at wall time `ts` (default: ending now), with `attrs` on
-        its event (the JAX package's signature, keywords first)."""
+    def add_event(self, name, dur_s=None, ts=None, depth=None, **attrs):
+        """A span of dur_s seconds at `depth` (default: the calling
+        thread's current depth), starting at wall time `ts` (default:
+        ending now), with `attrs` on its event (the JAX package's
+        signature, keywords first)."""
         stack = self._stack()
         dur_s = 0.0 if dur_s is None else float(dur_s)
-        ev = {"span": name, "depth": len(stack), "dur_s": dur_s,
+        ev = {"span": name,
+              "depth": len(stack) if depth is None else depth,
+              "dur_s": dur_s,
               "ts": time.time() - dur_s if ts is None else float(ts),
               "sid": new_span_id()}
         parent = stack[-1] if stack else self.parent_id
@@ -140,7 +234,7 @@ class _NullTracer:
     def span(self, name, parent=None, **attrs):
         yield None
 
-    def add_event(self, name, dur_s=None, ts=None, **attrs):
+    def add_event(self, name, dur_s=None, ts=None, depth=None, **attrs):
         return None
 
 

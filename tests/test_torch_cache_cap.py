@@ -25,6 +25,10 @@ class _Ctx:
 
     def __init__(self, bases, device=None):
         self.bases = bases
+        self.n = len(bases)
+
+    def at_chunk(self, chunk):
+        return self
 
     def msm(self, scalars):
         return None

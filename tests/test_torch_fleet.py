@@ -11,12 +11,12 @@ every kernel's plain torch version) driven by the port's Dispatcher.
   FFT2, FFT_EXCHANGE, MSM and EVAL;
 - the JAX package's Dispatcher drives the same workers (the wire protocol
   is shared): its fft_dist and msm equal the oracle;
-- the tags of planes the port has not ported (METRICS_FETCH, LOG_FETCH,
-  PROFILE) answer ERR "... not ported", and the dispatcher methods that
-  need them raise NotImplementedError (the membership plane's ROSTER,
-  JOIN and LEAVE are tested in test_torch_membership.py);
-  STORE_FETCH and STORE_LIST on a worker without --store answer the
-  JAX worker's "no store" ERR.
+- the observability tags (METRICS_FETCH, LOG_FETCH, PROFILE) answer on
+  every worker, and the dispatcher methods that read them return each
+  worker's snapshot and capture (test_torch_fleet_obs.py covers the
+  plane; the membership plane's ROSTER, JOIN and LEAVE are tested in
+  test_torch_membership.py); STORE_FETCH and STORE_LIST on a worker
+  without --store answer the JAX worker's "no store" ERR.
 
 Ports 20000 + 2 * (pid % 500): clear of the JAX package's fleet tests.
 """
@@ -224,10 +224,21 @@ def test_jax_dispatcher_drives_port_workers(fleet):
 
 
 @pytest.mark.parametrize("tag", ["METRICS_FETCH", "LOG_FETCH", "PROFILE"])
-def test_later_planes_answer_not_ported(fleet, tag):
-    with pytest.raises(RuntimeError, match="%s not ported" % tag):
-        fleet.workers[0].call(getattr(protocol, tag),
-                              protocol.encode_json({}))
+def test_observability_planes_answer(fleet, tag):
+    import json
+    req = {"duration_ms": 20} if tag == "PROFILE" else {}
+    raw = fleet.workers[0].call(getattr(protocol, tag),
+                                protocol.encode_json(req))
+    if tag == "PROFILE":
+        meta, blob = protocol.decode_result(raw)
+        assert meta["format"] == "pystacks-json" and meta["worker"] == 0
+        assert json.loads(blob)["samples"] >= 1
+    elif tag == "LOG_FETCH":
+        assert set(json.loads(raw)) == {"events", "seq"}
+    else:
+        snap = json.loads(raw)
+        assert snap["index"] == 0 and snap["backend"] == "torch"
+        assert snap["counters"]["served_metrics_fetch"] >= 1
 
 
 @pytest.mark.parametrize("tag", ["STORE_FETCH", "STORE_LIST"])
@@ -241,10 +252,16 @@ def test_store_plane_without_a_store_answers_err(fleet, tag):
 
 
 @pytest.mark.parametrize("method", ["fleet_metrics", "profile_worker"])
-def test_later_planes_raise_in_the_dispatcher(fleet, method):
-    args = (0,) if method == "profile_worker" else ()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(fleet, method)(*args)
+def test_dispatcher_reads_the_observability_planes(fleet, method):
+    if method == "profile_worker":
+        meta, blob = fleet.profile_worker(1, duration_ms=20)
+        assert meta["worker"] == 1 and meta["format"] == "pystacks-json"
+        assert len(blob) == meta["bytes"]
+    else:
+        entries = fleet.fleet_metrics()
+        assert [e["index"] for e in entries] == [0, 1]
+        assert all(e["reachable"] and e["snapshot"]["device"] == "cpu"
+                   for e in entries)
 
 
 def test_worker_needs_the_card_unless_asked_for_cpu(tmp_path):

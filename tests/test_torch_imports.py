@@ -167,3 +167,48 @@ def test_the_elastic_fleet_modules_are_scanned(rel):
     assert names and not any(_forbidden(n) for n in names)
     assert not any(isinstance(node, ast.Attribute) and node.attr in (
         "environ", "getenv") for node in ast.walk(tree))
+
+
+@pytest.mark.parametrize("rel,imports_torch", [
+    ("obs/fleet.py", False), ("obs/profiling.py", True),
+    ("backend/autotune.py", True), ("store/calibration.py", False)])
+def test_the_observability_and_calibration_modules_stand_alone(
+        rel, imports_torch):
+    """The observability and calibration planes' modules are scanned by
+    the checks above, import nothing of jax or the JAX package (their
+    lazy imports inside functions included) and read no environment;
+    the ones that compute import torch (obs/fleet.py is plain Python,
+    store/calibration.py reaches torch through backend/autotune.py).
+    Imported and used in a fresh interpreter (a fleet entry rendered, a
+    stack profile taken, a kernel parameter resolved), they load no
+    module of jax or of the JAX package."""
+    path = PORT / rel
+    assert path in _sources()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names] + \
+        [node.module or "" for node in ast.walk(tree)
+         if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert not any(_forbidden(n) for n in names)
+    assert ("torch" in names) == imports_torch
+    assert not any(isinstance(node, ast.Attribute) and node.attr in (
+        "environ", "getenv") for node in ast.walk(tree))
+    mod = "distributed_plonk_tpu_torch." + rel[:-3].replace("/", ".")
+    code = (
+        "import sys, importlib\n"
+        "m = importlib.import_module(%r)\n"
+        "if %r.endswith('fleet'):\n"
+        "    m.render_prom([{'index': 0, 'addr': 'a', 'reachable': True,"
+        " 'suspect': False, 'snapshot': None}])\n"
+        "elif %r.endswith('profiling'):\n"
+        "    m.capture(5, kind='stacks')\n"
+        "else:\n"
+        "    from distributed_plonk_tpu_torch.backend import msm_torch\n"
+        "    msm_torch.resolve_chunk(None, 8)\n"
+        "print(sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in %r))\n" % (mod, mod, mod,
+                                                     FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -123,7 +123,8 @@ def test_obs_server_serves_metrics_health_logs_and_traces(tmp_path):
     """ObsServer over a port service: /metrics (Prometheus text),
     /healthz, /logs, /trace/<job_id> (Chrome trace events, the job's
     queue-wait span with its placement attrs), /autoscale (the attached
-    autoscaler's state), and 404 for the planes not ported."""
+    autoscaler's state), and 404 for /fleet without an attached fleet
+    and for a profile that was never stored."""
     import json
     import urllib.error
     import urllib.request
@@ -164,9 +165,10 @@ def test_obs_server_serves_metrics_health_logs_and_traces(tmp_path):
         assert code == 200 and state["mode"] == "dry"
         assert state["ticks"] == 1 and state["queue"]["depth"] == 0
         assert state["bounds"] == {"min_workers": 1, "max_workers": 8}
-        for path in ("/fleet", "/profile/x"):
-            code, body = get(path)
-            assert code == 404 and b"not ported" in body
+        code, body = get("/fleet")
+        assert code == 404 and b"no fleet attached" in body
+        code, body = get("/profile/x")
+        assert code == 404 and b"no profile" in body
     finally:
         obs.close()
         svc.shutdown()
