@@ -6,8 +6,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. Set-up: the card's name and power limit (nvidia-smi), the kernels'
    build from csrc/ (nvcc, all sources in parallel), and, while nvcc
-   runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF)
-   and phase 8's v2 circuit.
+   runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF),
+   phase 8's v2 circuit and phase 10's zoo circuits, and, in a child
+   process, phase 10's CPU proves (zoo_cpu_child).
 2. Kernel parity: each kernel entry against its plain torch version on
    the card, on seeded inputs at the main path's shapes, with tolerance 0
    (every value is an integer in canonical form, every addition in a
@@ -64,8 +65,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    peak device memory above the resident beside the memory plan, the
    launches and the idle share.
 10. Zoo: every kind of circuits/ builds (the rollup at height 16 with 8
-   updates, n = 2^16); range (8 bits x 2) and preimage (x 1) prove on the
-   card and on TorchBackend(device="cpu") to the same bytes; the rollup
+   updates, n = 2^16; in the set-up); range (8 bits x 2) and preimage
+   (x 1) prove on the card and on TorchBackend(device="cpu") (the set-up's
+   child process) to the same bytes; the rollup
    proves cold and warm on TorchBackend and on MeshBackend(make_mesh(4))
    to the same bytes; every proof verifies.
 11. Fleet: the sharded 4-step FFT's stage panels (kernels 1 and 2 over
@@ -148,6 +150,20 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    a CUDA graph of its launches, the same for the stage panels of phase
    11 and the mesh NTTs of phase 9, each beside the single-card ntt of
    the whole vector, and kernel 4 at the mesh fold's shape.
+16. Multi-process mesh (multihost_checks): two child processes on this
+   card join one gloo group (parallel/mesh.init_multihost, 2 shards
+   each), after each has seen an NCCL group of the two refused at init
+   (one card); as one program they run (a) MeshNttPlan at 2^16 and 2^21
+   in all four modes and MeshMsmContext over v2's device key (2^18 + 3
+   powers, a round-1 batch of 5 handles), each equal to the single card
+   in the same child, (b) the v1 workload on MeshBackend from the device
+   SRS (the parent's circuit, pickled): preprocess, a cold and a warm
+   prove equal to the fixture, verify, with the path counters, per-round
+   seconds, peak memory above the resident beside memory_plan's
+   per-process figure, and the collectives' bytes and seconds per call.
+   Both ranks must report the same values and launch K1-K4. Meanwhile
+   this process runs (c): a one-process NCCL group's 2-shard mesh NTT at
+   2^16, its collectives on device tensors, equal to the single card.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -166,6 +182,7 @@ import concurrent.futures
 import contextlib
 import functools
 import gc
+import hashlib
 import json
 import os
 import random
@@ -872,27 +889,15 @@ def mesh_prove_checks(mesh, ckt, pk, vk, want_blob, seed_be, label,
     return launches
 
 
-def zoo_checks(dev, rollup_params):
-    """The circuit zoo: every kind builds (the rollup at rollup_params);
-    range and preimage prove on the card and on the CPU's plain versions
-    to the same bytes; the rollup proves on TorchBackend and on
-    MeshBackend over four shards to the same bytes. Every proof verifies.
-    Returns the rollup's seconds by backend, and (circuit, warm
-    TorchBackend, vk, proof bytes) of its TorchBackend run, which the
-    service phase proves against."""
-    from distributed_plonk_tpu_torch import circuits, kzg, proof_io
-    from distributed_plonk_tpu_torch.backend import _build
-    from distributed_plonk_tpu_torch.backend.torch_backend import \
-        TorchBackend
-    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
-    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
-        MeshBackend
-    from distributed_plonk_tpu_torch.prover import prove
-    from distributed_plonk_tpu_torch.verifier import verify
-    kinds = [("range", {"bits": 8, "count": 2}), ("preimage", {"count": 1}),
-             ("rollup", rollup_params)]
+ZOO_KINDS = (("range", {"bits": 8, "count": 2}), ("preimage", {"count": 1}))
+
+
+def zoo_build(rollup_params):
+    """Every kind of the circuit zoo built (seed 3): range and preimage at
+    ZOO_KINDS, the rollup at rollup_params; kind -> circuit."""
+    from distributed_plonk_tpu_torch import circuits
     built = {}
-    for kind, params in kinds:
+    for kind, params in ZOO_KINDS + (("rollup", rollup_params),):
         params = circuits.validate_params(kind, params)
         t = time.perf_counter()
         built[kind] = circuits.build(kind, params, seed=3)
@@ -900,42 +905,90 @@ def zoo_checks(dev, rollup_params):
               % (kind, json.dumps(params), built[kind].n,
                  built[kind].num_inputs, time.perf_counter() - t),
               flush=True)
+    return built
 
-    def run(ckt, be, count):
-        """preprocess + count proves -> (blobs, seconds: pre, each prove,
-        vk)."""
-        srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF,
-                                         device=dev)
-        t = time.perf_counter()
-        pk, vk = kzg.preprocess(srs, ckt, be)
+
+def zoo_prove(ckt, be, count, dev):
+    """preprocess + count proves of ckt on be from the device SRS on dev
+    (tau 0xDEADBEEF, prove rng Random(3)); the last proof must verify ->
+    (blobs, seconds: pre, each prove, vk)."""
+    from distributed_plonk_tpu_torch import kzg, proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.verifier import verify
+    cuda = torch.device(dev).type == "cuda"
+    srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF, device=dev)
+    t = time.perf_counter()
+    pk, vk = kzg.preprocess(srs, ckt, be)
+    if cuda:
         sync()
-        secs = [time.perf_counter() - t]
-        blobs = []
-        for _ in range(count):
-            _build.reset_launches()
-            t = time.perf_counter()
-            proof = prove(random.Random(3), ckt, pk, be)
+    secs = [time.perf_counter() - t]
+    blobs = []
+    for _ in range(count):
+        _build.reset_launches()
+        t = time.perf_counter()
+        proof = prove(random.Random(3), ckt, pk, be)
+        if cuda:
             sync()
-            secs.append(time.perf_counter() - t)
-            blobs.append(proof_io.serialize_proof(proof))
-        assert verify(vk, ckt.public_input(), proof, rng=random.Random(4))
-        return blobs, secs, vk
+        secs.append(time.perf_counter() - t)
+        blobs.append(proof_io.serialize_proof(proof))
+    assert verify(vk, ckt.public_input(), proof, rng=random.Random(4))
+    return blobs, secs, vk
 
-    for kind in ("range", "preimage"):
-        card, card_s, _ = run(built[kind], TorchBackend(device=dev), 1)
+
+def zoo_cpu_child(out_path):
+    """python3 chip_smoke.py --zoo-cpu OUT: the zoo's range and preimage
+    circuits preprocessed and proven on TorchBackend(device="cpu") (the
+    plain versions; no card touched), each proof verified; writes
+    {kind: {"blob": hex, "secs": [pre, prove]}} to OUT. The set-up runs it
+    beside nvcc; phase 10 holds the card's proofs to these bytes."""
+    from distributed_plonk_tpu_torch import circuits
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    torch.set_num_threads(1)
+    out = {}
+    for kind, params in ZOO_KINDS:
+        ckt = circuits.build(kind, circuits.validate_params(kind, params),
+                             seed=3)
+        blobs, secs, _ = zoo_prove(ckt, TorchBackend(device="cpu"), 1, "cpu")
+        out[kind] = {"blob": blobs[0].hex(), "secs": secs}
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(out_path + ".tmp", out_path)
+    return 0
+
+
+def zoo_checks(dev, built, cpu_ref):
+    """The circuit zoo over `built` (zoo_build): range and preimage prove
+    on the card to the bytes of their proofs on the CPU's plain versions
+    (cpu_ref, zoo_cpu_child's output); the rollup proves on TorchBackend
+    and on MeshBackend over four shards to the same bytes. Every proof
+    verifies. Returns the rollup's seconds by backend, and (circuit, warm
+    TorchBackend, vk, proof bytes) of its TorchBackend run, which the
+    service phase proves against."""
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
+        MeshBackend
+
+    for kind, _ in ZOO_KINDS:
+        card, card_s, _ = zoo_prove(built[kind], TorchBackend(device=dev), 1,
+                                    dev)
         read_launches("the zoo %s prove" % kind)
-        cpu, cpu_s, _ = run(built[kind], TorchBackend(device="cpu"), 1)
-        assert card == cpu, "zoo %s: card and CPU proofs differ" % kind
+        cpu = bytes.fromhex(cpu_ref[kind]["blob"])
+        assert card == [cpu], "zoo %s: card and CPU proofs differ" % kind
         print("zoo %s: card and CPU proofs equal, both verify; card "
-              "preprocess %.3f s, prove %.3f s; CPU (plain versions) "
-              "preprocess %.3f s, prove %.3f s"
-              % ((kind,) + tuple(card_s) + tuple(cpu_s)), flush=True)
+              "preprocess %.3f s, prove %.3f s; CPU (plain versions, in "
+              "the set-up's child process) preprocess %.3f s, prove %.3f s"
+              % ((kind,) + tuple(card_s) + tuple(cpu_ref[kind]["secs"])),
+              flush=True)
     ckt = built["rollup"]
     out = {}
     blobs = []
     for label, be in (("TorchBackend", TorchBackend(device=dev)),
                       ("MeshBackend", MeshBackend(make_mesh(4, dev)))):
-        got, secs, vk = run(ckt, be, 2)
+        got, secs, vk = zoo_prove(ckt, be, 2, dev)
         if label == "TorchBackend":
             rollup = (ckt, be, vk, got[0])
         read_launches("the rollup's warm %s prove" % label, PATH_KERNELS + (
@@ -1756,6 +1809,353 @@ def observe_and_calibrate(golden, v1, v2, n, dev):
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
+# phase 16: the multi-process mesh. Each rank's collectives time out after
+# MH_COLLECTIVE_S (a rank out of step fails, it does not hang); the parent
+# kills a child that has not exited after MH_CHILD_LIMIT_S.
+MH_COLLECTIVE_S = 120
+MH_CHILD_LIMIT_S = 300
+MH_SEED = 20261017      # the same seeded inputs on both ranks
+MH_NTT_SIZES = (1 << 16, 1 << 21)
+MH_CHILD_CMD = [sys.executable, os.path.abspath(__file__),
+                "--multihost-child"]
+MH_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
+              "proj_add")
+
+
+def must_launch(got, want):
+    """want: kernel names that must have launched, or {name: count}."""
+    if isinstance(want, dict):
+        assert {k: got[k] for k in want} == want, (want, got)
+    else:
+        assert all(got[k] for k in want), (want, got)
+
+
+def _digest(t):
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _collectives(transport):
+    return {op: dict(rec) for op, rec in transport.stats.items()}
+
+
+def multihost_child(pid, nccl_coord, gloo_coord, workdir, device="cuda:0"):
+    """python3 chip_smoke.py --multihost-child PID NCCL GLOO WORKDIR: rank
+    PID of phase 16's two-process mesh on cuda:0. Loads the kernels the
+    set-up built (no nvcc), checks that an NCCL group of two ranks on one
+    card is refused at init, joins the gloo group and runs (a) the mesh
+    NTT at 2^16 and 2^21 in all four modes and the mesh MSM over v2's
+    device key against the single card, (b) the v1 workload (the parent's
+    pickled circuit) on MeshBackend from the device SRS: preprocess, a
+    cold and a warm prove, each equal to the fixture, and verify. Prints
+    one "MH {json}" line per step; any failure raises. (device="cpu"
+    rehearses it on the plain versions, without the NCCL step, with
+    MH_NTT_SIZES, V2_POWERS, FIXTURE and the CUDA helpers replaced.)"""
+    import pickle
+    from distributed_plonk_tpu_torch import kzg, proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import ntt_torch as N
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    from distributed_plonk_tpu_torch.parallel import memory_plan
+    from distributed_plonk_tpu_torch.parallel.mesh import (
+        init_multihost, make_mesh, shutdown_multihost)
+    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
+        MeshBackend
+    from distributed_plonk_tpu_torch.parallel.msm_mesh import MeshMsmContext
+    from distributed_plonk_tpu_torch.parallel.ntt_mesh import MeshNttPlan
+    from distributed_plonk_tpu_torch.poly import Domain
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.trace import Tracer
+    from distributed_plonk_tpu_torch.verifier import verify
+
+    def emit(step, **kw):
+        print("MH " + json.dumps(dict(step=step, rank=pid, **kw)),
+              flush=True)
+
+    dev = torch.device(device)
+    total = collections.Counter()
+
+    def launches():
+        got = dict(_build.LAUNCHES)
+        total.update(got)
+        return got
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        t = time.perf_counter()
+        _build.load()
+        assert not _build.build_seconds, "a child ran nvcc"
+        emit("load", seconds=time.perf_counter() - t,
+             source_hash=_build.source_hash())
+
+        # NCCL refuses two ranks on one card: init_multihost raises first
+        t = time.perf_counter()
+        try:
+            init_multihost(nccl_coord, 2, pid, local_device_ids=[0],
+                           backend="nccl", timeout_s=MH_COLLECTIVE_S)
+        except RuntimeError as e:
+            assert "NCCL needs one card per rank" in str(e), e
+            emit("nccl refused", seconds=time.perf_counter() - t,
+                 error=str(e))
+        else:
+            shutdown_multihost()
+            raise AssertionError("two NCCL ranks on one card were not "
+                                 "refused")
+
+    t = time.perf_counter()
+    counts = init_multihost(gloo_coord, 2, pid, local_device_ids=[0],
+                            device=dev, backend="gloo",
+                            timeout_s=MH_COLLECTIVE_S)
+    assert counts == (2, 2), counts
+    mesh = make_mesh(4)
+    assert (mesh.size, mesh.first, mesh.devices) == (4, 2 * pid, (dev, dev))
+    tp = mesh.transport
+    emit("init", seconds=time.perf_counter() - t, counts=list(counts),
+         mesh=repr(mesh))
+    rng = random.Random(MH_SEED)
+
+    # (a) the mesh NTT against the single card, in this process
+    for size in MH_NTT_SIZES:
+        mplan = MeshNttPlan(mesh, size)
+        t = time.perf_counter()
+        plan = N.get_plan(size, dev)
+        plan_s = time.perf_counter() - t
+        v = seeded_words(dev, rng, 2, size)
+        for inverse, coset in MODES:
+            t = time.perf_counter()
+            mplan.tables(inverse, coset)
+            sync()
+            tables_s = time.perf_counter() - t
+            tp.reset_stats()
+            _build.reset_launches()
+            t = time.perf_counter()
+            got = mplan.ntt(v, inverse, coset)
+            sync()
+            secs = time.perf_counter() - t
+            got_l = launches()
+            must_launch(got_l, ("mont_mul", "ntt"))
+            assert max_abs_err(got, N.ntt(plan, v, inverse, coset)) == 0, \
+                ("two-process mesh ntt vs single card", size, inverse,
+                 coset)
+            emit("ntt", size=size, mode=mode_name(inverse, coset),
+                 seconds=secs, tables_s=tables_s, single_plan_s=plan_s,
+                 launches=got_l, collectives=_collectives(tp),
+                 digest=_digest(got))
+        del v, got
+
+    # (a) the mesh MSM over v2's device key, a round-1 batch of 5 handles
+    t = time.perf_counter()
+    srs2 = kzg.universal_setup_device(V2_POWERS - 1, tau=0xDEADBEEF,
+                                      device=dev)
+    ck = kzg.device_commit_key(srs2, V2_POWERS, dev)
+    sync()
+    srs_s = time.perf_counter() - t
+    _build.reset_launches()
+    t = time.perf_counter()
+    mctx = MeshMsmContext(mesh, ck)
+    sync()
+    key_s = time.perf_counter() - t
+    key_l = launches()
+    words = seeded_words(dev, rng, 5, V2_POWERS - 1)
+    hs = [words[:, i] for i in range(5)]
+    mem0 = reset_peak()
+    tp.reset_stats()
+    _build.reset_launches()
+    t = time.perf_counter()
+    got = mctx.msm_mont_limbs_many(hs)
+    msm_s = time.perf_counter() - t
+    msm_mib = peak_mib(mem0)
+    got_l = launches()
+    # per rank: K3 on its 2 shards, K4 folds 2 -> 1 here and 2 -> 1 across
+    # the ranks, one tail
+    must_launch(got_l, {"msm_digits": 2, "bucket_sums": 2, "msm_tail": 1,
+                        "proj_add": 2})
+    t = time.perf_counter()
+    want = TorchBackend(device=dev).commit_many_h(ck, hs)
+    single_s = time.perf_counter() - t
+    assert got == want, "two-process mesh msm vs single card"
+    plan = memory_plan.msm_mesh_plan(len(ck), mesh.size, batch=5,
+                                     n_processes=mesh.world)
+    emit("msm", points=len(ck), local_n=mctx.local_n, srs_s=srs_s,
+         key_s=key_s, key_launches=key_l, seconds=msm_s, single_s=single_s,
+         launches=got_l, collectives=_collectives(tp), peak_mib=msm_mib,
+         plan_mib=plan["per_process"] / 2**20,
+         commitments=[[str(c) for c in p] for p in got])
+    del mctx, ck, srs2, words, hs, want
+
+    # (b) v1 on MeshBackend across the two processes
+    with open(os.path.join(workdir, "v1.pkl"), "rb") as f:
+        ckt = pickle.load(f)
+    with open(FIXTURE) as f:
+        golden = bytes.fromhex(f.read().strip())
+    n = ckt.n
+    m = Domain(6 * (n + 1) + 1).size
+    t = time.perf_counter()
+    srs = kzg.universal_setup_device(n + 2, tau=0xDEADBEEF, device=dev)
+    be = MeshBackend(mesh)
+    tp.reset_stats()
+    _build.reset_launches()
+    pk, vk = kzg.preprocess(srs, ckt, be)
+    sync()
+    emit("preprocess", seconds=time.perf_counter() - t,
+         launches=launches(), collectives=_collectives(tp),
+         counters={"mesh_ntt_calls": be.mesh_ntt_calls,
+                   "mesh_msm_calls": be.mesh_msm_calls})
+    r3 = memory_plan.round3_mesh_plan(n, m, mesh.size,
+                                      n_processes=mesh.world)
+    for label in ("cold", "warm"):
+        be.mesh_ntt_calls.clear()
+        be.replicated_ntt_calls.clear()
+        be.mesh_msm_calls = 0
+        mem0 = reset_peak()
+        tp.reset_stats()
+        _build.reset_launches()
+        tr = Tracer()
+        t = time.perf_counter()
+        proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
+        sync()
+        secs = time.perf_counter() - t
+        mib = peak_mib(mem0)
+        got_l = launches()
+        must_launch(got_l, PATH_KERNELS + ("proj_add",))
+        blob = proof_io.serialize_proof(proof)
+        assert blob == golden, "%s two-process mesh proof" % label
+        assert not be.replicated_ntt_calls, be.replicated_ntt_calls
+        assert set(be.mesh_ntt_calls) == {n, m}, be.mesh_ntt_calls
+        assert be.mesh_msm_calls == 13, be.mesh_msm_calls
+        emit("prove", label=label, seconds=secs,
+             rounds=tr.totals(0), peak_mib=mib,
+             plan_mib=(r3["lead"] + r3["per_process"]) / 2**20,
+             launches=got_l, collectives=_collectives(tp),
+             counters={"mesh_ntt_calls": {str(k): c for k, c in
+                                          be.mesh_ntt_calls.items()},
+                       "mesh_msm_calls": be.mesh_msm_calls},
+             digest=hashlib.sha256(blob).hexdigest()[:16])
+    t = time.perf_counter()
+    assert verify(vk, ckt.public_input(), proof, rng=random.Random(2))
+    emit("verify", seconds=time.perf_counter() - t)
+    shutdown_multihost()
+    emit("done", launches=dict(total))
+    return 0
+
+
+def nccl_mesh_check(dev, rng):
+    """Phase 16 (c): a one-process NCCL group (world size 1) and a 2-shard
+    mesh on this card: the 2^16 mesh NTT, its all-to-all and all-gather
+    called on device tensors through NCCL, equal to the single card in all
+    four modes."""
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import ntt_torch as N
+    from distributed_plonk_tpu_torch.parallel.mesh import (
+        init_multihost, make_mesh, shutdown_multihost)
+    from distributed_plonk_tpu_torch.parallel.ntt_mesh import MeshNttPlan
+    from distributed_plonk_tpu_torch.runtime.supervisor import reserve_port
+    t = time.perf_counter()
+    counts = init_multihost("127.0.0.1:%d" % reserve_port(), 1, 0,
+                            backend="nccl", timeout_s=MH_COLLECTIVE_S)
+    try:
+        assert counts == (1, torch.cuda.device_count()), counts
+        mesh = make_mesh(2)
+        assert mesh.size == 2 and mesh.transport.backend == "nccl"
+        print("NCCL group of one process: init %.3f s; %r"
+              % (time.perf_counter() - t, mesh), flush=True)
+        size = 1 << 16
+        mplan = MeshNttPlan(mesh, size)
+        plan = N.get_plan(size, dev)
+        v = seeded_words(dev, rng, 2, size)
+        for inverse, coset in MODES:
+            mplan.tables(inverse, coset)
+            mesh.transport.reset_stats()
+            _build.reset_launches()
+            t = time.perf_counter()
+            got = mplan.ntt(v, inverse, coset)
+            sync()
+            secs = time.perf_counter() - t
+            read_launches("the NCCL mesh ntt %s" % mode_name(inverse, coset),
+                          ("mont_mul", "ntt"))
+            stats = _collectives(mesh.transport)
+            assert stats["all_to_all"]["calls"] == 1 and \
+                stats["all_gather"]["calls"] == 1, stats
+            assert max_abs_err(got, N.ntt(plan, v, inverse, coset)) == 0, \
+                ("NCCL mesh ntt vs single card", inverse, coset)
+            print("NCCL mesh ntt (8, 2, 2^16) %s over 2 shards: %.4f s, "
+                  "equal to the single-card ntt; collectives %s"
+                  % (mode_name(inverse, coset), secs, json.dumps(stats)),
+                  flush=True)
+    finally:
+        shutdown_multihost()
+
+
+def multihost_checks(smi, ckt, dev, rng):
+    """Phase 16: two child processes (multihost_child) join a gloo group
+    on this card and run (a) and (b) as one program, while this process
+    runs (c) (nccl_mesh_check). A child that exits non-zero, overruns
+    MH_CHILD_LIMIT_S or misses a step fails the phase; both ranks must
+    report the same values. Returns each rank's launches over the phase,
+    by kernel: {kernel: [rank 0, rank 1]}."""
+    import pickle
+    from distributed_plonk_tpu_torch.runtime.supervisor import reserve_port
+
+    def say(msg):
+        print("[%s] %s" % (smi, msg), flush=True)
+
+    workdir = tempfile.mkdtemp(prefix="dpt_multihost_")
+    procs = []
+    try:
+        with open(os.path.join(workdir, "v1.pkl"), "wb") as f:
+            pickle.dump(ckt, f)
+        coords = ["127.0.0.1:%d" % reserve_port() for _ in range(2)]
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            MH_CHILD_CMD + [str(pid)] + coords + [workdir], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        nccl_mesh_check(dev, rng)           # (c), while the ranks start
+        outs = []
+        for p in procs:
+            left = MH_CHILD_LIMIT_S - (time.perf_counter() - t)
+            out, err = p.communicate(timeout=max(left, 1))
+            outs.append((p.returncode, out, err))
+        wall = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    ranks = []
+    for pid, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError("multihost rank %d exited %d:\n%s"
+                                 % (pid, rc, err[-4000:]))
+        steps = [json.loads(ln[3:]) for ln in out.splitlines()
+                 if ln.startswith("MH ")]
+        ranks.append(steps)
+    names = [[(s["step"], s.get("size"), s.get("mode"), s.get("label"))
+              for s in steps] for steps in ranks]
+    assert names[0] == names[1] and names[0][-1][0] == "done", names
+    assert len([s for s in names[0] if s[0] == "ntt"]) == \
+        4 * len(MH_NTT_SIZES), names[0]
+    for a, b in zip(*ranks):
+        for key in ("digest", "commitments", "counters"):
+            assert a.get(key) == b.get(key), (a["step"], key)
+    for steps in ranks:
+        for s in steps:
+            body = {k: v for k, v in s.items()
+                    if k not in ("step", "rank", "digest", "commitments")}
+            say("rank %d %s: %s" % (s["rank"], s["step"], json.dumps(body)))
+    per_rank = [steps[-1]["launches"] for steps in ranks]
+    for got in per_rank:
+        must_launch(got, MH_KERNELS)
+    say("two-process mesh: both ranks equal the single card and each "
+        "other (mesh ntt 2^16 and 2^21, mesh msm over %d powers, v1 cold "
+        "and warm proofs equal to the fixture); %.3f s for both ranks"
+        % (V2_POWERS, wall))
+    return {k: [got.get(k, 0) for got in per_rank]
+            for k in ("mont_mul", "ntt", "msm_digits", "bucket_sums",
+                      "msm_tail", "proj_add", "proj_add_mixed")}
+
+
 def phase(name):
     print("== phase: %s" % name, flush=True)
     return time.perf_counter()
@@ -1766,12 +2166,37 @@ def done(name, t0):
           flush=True)
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--zoo-cpu"] and len(argv) == 2:
+        return zoo_cpu_child(argv[1])
+    if argv[:1] == ["--multihost-child"] and len(argv) == 5:
+        return multihost_child(int(argv[1]), argv[2], argv[3], argv[4])
+    if argv:
+        print("usage: python3 chip_smoke.py (the check; needs one card)",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs a card",
               file=sys.stderr)
         return 2
+    cleanup = []        # run last, whatever happens: stop the children
+    try:
+        return run_phases(cleanup)
+    finally:
+        for fn in reversed(cleanup):
+            fn()
 
+
+def stop_process(p):
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+
+
+def run_phases(cleanup):
+    """Phases 1-16; appends to `cleanup` what must run at the end (the
+    processes it starts are stopped there)."""
     from distributed_plonk_tpu_torch import curve as C, kzg, proof_io
     from distributed_plonk_tpu_torch.checkpoint import ProverCheckpoint
     from distributed_plonk_tpu_torch.constants import R_MOD
@@ -1841,8 +2266,18 @@ def main():
     def build():
         _build.load()
         return time.perf_counter() - t
-    # nvcc runs in child processes; this thread makes the host SRS
-    # (pure Python) meanwhile
+    # the zoo's CPU proves (plain versions, pure host work) run in a child
+    # process beside nvcc; phase 10 holds the card's proofs to them
+    zoo_dir = tempfile.mkdtemp(prefix="dpt_zoo_cpu_")
+    cleanup.append(lambda: shutil.rmtree(zoo_dir, ignore_errors=True))
+    zoo_out = os.path.join(zoo_dir, "zoo_cpu.json")
+    with open(os.path.join(zoo_dir, "zoo_cpu.log"), "w") as log:
+        zoo_cpu = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zoo-cpu",
+             zoo_out], cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    cleanup.append(lambda: stop_process(zoo_cpu))
+    # nvcc runs in child processes; this thread makes the host SRS, the v2
+    # circuit and the zoo's circuits (pure Python) meanwhile
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         built = pool.submit(build)
         ckt, _ = generate_circuit(rng=random.Random(11), height=32,
@@ -1856,6 +2291,8 @@ def main():
         ckt2, _ = generate_circuit(rng=random.Random(11), height=32,
                                    num_proofs=50)
         ckt2_s = time.perf_counter() - t_v2
+        # phase 10's circuits
+        zoo_built = zoo_build({"height": 16, "updates": 8})
         build_s = built.result()
     print("kernels built and loaded in %.3f s (%s); nvcc seconds by "
           "library: %s" % (build_s, _build.source_hash(),
@@ -2572,7 +3009,17 @@ def main():
     # on the card, range also on the CPU to one proof; the rollup at
     # n = 2^16 on TorchBackend and on the mesh to one proof
     t0 = phase("zoo")
-    _, rollup_ref = zoo_checks(dev, {"height": 16, "updates": 8})
+    t = time.perf_counter()
+    if zoo_cpu.wait(timeout=600) != 0:
+        with open(os.path.join(zoo_dir, "zoo_cpu.log")) as f:
+            raise AssertionError("the zoo's CPU proves failed:\n"
+                                 + f.read()[-4000:])
+    with open(zoo_out) as f:
+        zoo_cpu_ref = json.load(f)
+    print("the zoo's CPU proves (started in the set-up): waited %.3f s"
+          % (time.perf_counter() - t), flush=True)
+    _, rollup_ref = zoo_checks(dev, zoo_built, zoo_cpu_ref)
+    del zoo_built
     gc.collect()
     torch.cuda.empty_cache()
     done("zoo", t0)
@@ -2811,6 +3258,16 @@ def main():
     print("ntt coset fwd (8, 25, 65536): bound %.4f ms (%s)"
           % (bound_ms(nbytes, imads), bound_by(nbytes, imads)))
     done("profile", t0)
+
+    # --- 16. the multi-process mesh: two processes on this card joined by
+    # init_multihost over gloo run the mesh NTT, the mesh MSM and the v1
+    # prove as one program; a one-process NCCL group runs the mesh NTT's
+    # collectives on device tensors
+    t0 = phase("multi-process mesh")
+    mh_launches = multihost_checks(smi, ckt, dev, rng)
+    for name, rec in kernels.items():
+        rec["multihost_launches"] = mh_launches[name]
+    done("multi-process mesh", t0)
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels
     print(json.dumps({"kernels": [kernels[k] for k in (

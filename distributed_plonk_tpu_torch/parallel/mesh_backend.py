@@ -26,6 +26,17 @@ everywhere would still prove the same bytes, so a run reads them.
 
 The mesh shards; it does not stream: `quotient_streamed` is None, so
 round 3 runs one-shot (25 coset planes, each NTT on the mesh).
+
+On a multi-process mesh (parallel/mesh.init_multihost) every process
+constructs a MeshBackend and runs the same preprocess and prove with the
+same rng: each computes its own shards, the mesh NTT's all-to-all and the
+MSM's plane fold run as collectives, and the round math is replicated on
+every process's lead device (the JAX package's replicated shardings), so
+every process ends with the same proof bytes and the same counters. Every
+process must issue the same collectives in the same order from one
+thread, so `issues_collectives` tells the round pipeline
+(prover.PipelinedProver), whose executor thread enqueues launches, to
+refuse the backend; `prove` and `prove_many` drive it.
 """
 
 import collections
@@ -52,6 +63,12 @@ class MeshBackend(TorchBackend):
         self.mesh_ntt_calls = collections.Counter()
         self.replicated_ntt_calls = collections.Counter()
         self.mesh_msm_calls = 0
+
+    @property
+    def issues_collectives(self):
+        """Whether its NTTs and commitments call collectives (a mesh over a
+        process group), which every process must issue in one order."""
+        return self.mesh.transport is not None
 
     def _plan(self, n):
         """The MeshNttPlan of size n, or None where n does not shard."""

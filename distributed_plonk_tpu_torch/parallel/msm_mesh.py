@@ -8,12 +8,15 @@ key padded by the identity to a multiple of 16 D (padding never changes a
 sum). Each device builds the window-shifted key of the ranges it holds
 (kernel 4's proj_add, msm_torch.shifted_key), and each shard, per
 commitment batch, runs kernel 3 (msm_digits, bucket_sums) on its range
-of the scalars. The D
-bucket planes then go to the lead device and fold there with kernel 4's
-proj_add, and one msm_tail (kernel 4) finishes the batch: the counterpart
-of the JAX package's all_gather + fold + finish, and of the reference's
-host-side sum of partial totals (dispatcher2.rs:888-890). G1 addition is
-not a ring sum, so the fold adds points, never words.
+of the scalars. The D bucket planes then go to the lead device and fold
+there with kernel 4's proj_add, and one msm_tail (kernel 4) finishes the
+batch: the counterpart of the JAX package's all_gather + fold + finish,
+and of the reference's host-side sum of partial totals
+(dispatcher2.rs:888-890). On a multi-process mesh each process builds the
+keys of only the shards it holds and folds their planes; one all-gather
+then brings every process's planes to every process, which folds them in
+rank order (the JAX package's all_gather). G1 addition is not a ring sum,
+so the fold adds points, never words.
 
 Each shard's window is the port's (msm_torch.MsmContext on its range:
 signed c = 7 from 256 points, else unsigned); the JAX mesh uses c = 8.
@@ -39,28 +42,25 @@ class MeshMsmContext:
         n = len(bases)
         self.n = n
         self.padded_n = n + (-n) % (16 * d)
-        self.local_n = self.padded_n // d
-        pad = self.padded_n - n
-        if isinstance(bases, DeviceCommitKey):
-            # a device-built key (Jacobian, arbitrary Z): normalized once,
-            # on its own device, then split into ranges
-            ax, ay, inf = CT.batch_to_affine(bases.point)
-            ax, ay = (torch.nn.functional.pad(t, (0, pad)) for t in (ax, ay))
-            inf = torch.nn.functional.pad(inf, (0, pad), value=True)
-        else:
-            ax, ay, inf = M.points_to_device(bases, pad, mesh.lead)
+        self.local_n = loc = self.padded_n // d
+        # the ranges of the shards this process holds, [lo, hi) of the
+        # padded key: only they are normalized and shifted here
+        lo = mesh.first * loc
+        hi = lo + len(mesh.devices) * loc
+        ax, ay, inf = self._affine_range(bases, lo, hi)
         # one key build per device over the ranges of the shards it holds
         # (the build is elementwise per point, then one batch inversion),
         # split into each shard's (W * local_n, 24) key
-        loc = self.local_n
         _, c, windows, _ = M.window_of(loc)
         held = {}
-        for s, dev in enumerate(mesh.devices):
+        for s, dev in mesh.shards():
             held.setdefault(dev, []).append(s)
-        self.shards = [None] * d
+        self.shards = {}
         for dev, ss in held.items():
-            x, y, f = (torch.cat([t[..., s * loc:(s + 1) * loc] for s in ss],
-                                 dim=-1).to(dev) for t in (ax, ay, inf))
+            x, y, f = (torch.cat([t[..., (s - mesh.first) * loc:
+                                    (s - mesh.first + 1) * loc]
+                                  for s in ss], dim=-1).to(dev)
+                       for t in (ax, ay, inf))
             key = M.shifted_key(x, y, f, c, windows).reshape(
                 windows, len(ss), loc, -1)
             for i, s in enumerate(ss):
@@ -68,6 +68,24 @@ class MeshMsmContext:
                 self.shards[s] = MsmContext.from_affine(
                     x[:, part], y[:, part], f[part],
                     key[:, i].reshape(windows * loc, -1).contiguous())
+
+    def _affine_range(self, bases, lo, hi):
+        """Columns [lo, hi) of the identity-padded key as (12, hi - lo)
+        affine Montgomery x, y and the (hi - lo,) infinity mask, on the
+        lead device (a device key is normalized on its own device)."""
+        top = min(hi, self.n)
+        if top <= lo:       # identity padding only
+            return M.points_to_device([], hi - lo, self.mesh.lead)
+        pad = hi - top
+        if isinstance(bases, DeviceCommitKey):
+            # a device-built key (Jacobian, arbitrary Z): the range
+            # normalized once, then padded
+            ax, ay, inf = CT.batch_to_affine(
+                tuple(t[:, lo:top] for t in bases.point))
+            ax, ay = (torch.nn.functional.pad(t, (0, pad)) for t in (ax, ay))
+            inf = torch.nn.functional.pad(inf, (0, pad), value=True)
+            return ax, ay, inf
+        return M.points_to_device(bases[lo:top], pad, self.mesh.lead)
 
     def stack(self, hs):
         """(8, L <= n) handles -> one (8, B, padded_n) zero-padded batch on
@@ -81,23 +99,34 @@ class MeshMsmContext:
             for h in hs], dim=1)
 
     def bucket_planes(self, v):
-        """(8, B, padded_n) scalars on the lead -> the bucket sums of the
-        whole key, folded on the lead: ((12, B, n_buckets),)*3."""
+        """(8, B, padded_n) scalars on the lead (the same in every process)
+        -> the bucket sums of the whole key, folded on the lead:
+        ((12, B, n_buckets),)*3. The planes of the shards held here fold
+        in shard order; across processes, each process's folded planes
+        are all-gathered and folded in rank order, the same order in every
+        process, so every process holds the same projective sums."""
         loc = self.local_n
         planes = [ctx.bucket_planes(v[:, :, s * loc:(s + 1) * loc]
                                     .to(ctx.device))
-                  for s, ctx in enumerate(self.shards)]
+                  for s, ctx in self.shards.items()]
         lead = self.mesh.lead
         acc = planes[0]
         for p in planes[1:]:
             acc = CT.proj_add(acc, tuple(c.to(lead) for c in p))
+        if self.mesh.transport is None:
+            return acc
+        ranks = self.mesh.transport.all_gather(torch.stack(
+            [c.to(lead) for c in acc]))             # (W, 3, 12, B, buckets)
+        acc = tuple(ranks[0])
+        for q in range(1, self.mesh.world):
+            acc = CT.proj_add(acc, tuple(ranks[q]))
         return acc
 
     def msm_mont_limbs_many_async(self, hs):
         """Enqueue the commitments of (8, L <= n) Montgomery Fr coefficient
         handles, BATCH_CHUNK per launch sequence; returns force() -> affine
         host points (the transfers and the host decode)."""
-        tail = self.shards[0].tail
+        tail = self.shards[self.mesh.first].tail
         totals = [tail(self.bucket_planes(
             self.stack(hs[i:i + self.BATCH_CHUNK])))
             for i in range(0, len(hs), self.BATCH_CHUNK)]

@@ -35,6 +35,13 @@ Handles enter and leave on the lead device in natural order, (8, B, n)
 Montgomery words, the layout of TorchBackend's handles: the scatter of A's
 row blocks to the shards and the gather of B's row blocks back are plain
 copies (views where a shard shares the lead's device).
+
+On a multi-process mesh (mesh.init_multihost) every process holds the
+same input and runs this body for the shards it holds: the tiles move in
+one all-to-all per call (the tiles between its own shards ride the send
+buffer too, so the result always passes through the collective), and
+one all-gather of every process's B row blocks leaves the whole output
+on every process.
 """
 
 import torch
@@ -83,9 +90,10 @@ class MeshNttPlan:
         return torch.arange(lo, hi, dtype=torch.int64, device=dev)
 
     def tables(self, inverse, coset):
-        """Per shard (pre or None, mid, post or None): (8, 1, c/D, r)
-        stage-1 tables at A[j2, j1] / A[j2, k1], the (8, 1, r/D, c)
-        stage-2 table at B[k1, k2] (axis 1 broadcasts over the batch)."""
+        """Per shard this process holds, in mesh.shards() order (pre or
+        None, mid, post or None): (8, 1, c/D, r) stage-1 tables at
+        A[j2, j1] / A[j2, k1], the (8, 1, r/D, c) stage-2 table at
+        B[k1, k2] (axis 1 broadcasts over the batch)."""
         key = (inverse, coset)
         if key in self._tables:
             return self._tables[key]
@@ -97,7 +105,7 @@ class MeshNttPlan:
                 else FR_GENERATOR
         per_device = {}     # one table of powers per base and device
         out = []
-        for s, dev in enumerate(self.mesh.devices):
+        for s, dev in self.mesh.shards():
             if dev not in per_device:
                 per_device[dev] = {k: powers(b, n, dev)
                                    for k, b in bases.items()}
@@ -119,10 +127,11 @@ class MeshNttPlan:
         return out
 
     def ntt(self, v, inverse=False, coset=False):
-        """(8, B, n) Montgomery words on the lead device -> their
-        (i)(coset)NTT, natural order, on the lead device."""
+        """(8, B, n) Montgomery words on the lead device (the same values in
+        every process of a multi-process mesh) -> their (i)(coset)NTT,
+        natural order, on the lead device (in every process)."""
         n, r, c = self.n, self.r, self.c
-        devs = self.mesh.devices
+        shards = self.mesh.shards()
         lead = self.mesh.lead
         if v.dim() != 3 or v.shape[0] != FR.n_words or v.shape[2] != n:
             raise ValueError("mesh ntt: expected (8, B, %d), got %s"
@@ -130,18 +139,19 @@ class MeshNttPlan:
         B = v.shape[1]
         ra, rb = self.rows_a, self.rows_b
         tabs = self.tables(inverse, coset)
-        plan_r = [ntt_torch.get_plan(r, dev) for dev in devs]
-        plan_c = [ntt_torch.get_plan(c, dev) for dev in devs]
+        plan_r = [ntt_torch.get_plan(r, dev) for _, dev in shards]
+        plan_c = [ntt_torch.get_plan(c, dev) for _, dev in shards]
         a_all = v.reshape(FR.n_words, B, r, c).transpose(2, 3)  # A[j2, j1]
 
-        # stage 1 on every shard: pre-scale, r-point rows, mid twiddle
+        # stage 1 on every shard held here: pre-scale, r-point rows, mid
+        # twiddle
         stage1 = []
-        for s, dev in enumerate(devs):
-            pre, mid, _ = tabs[s]
+        for i, (s, dev) in enumerate(shards):
+            pre, mid, _ = tabs[i]
             a = a_all[:, :, s * ra:(s + 1) * ra].contiguous().to(dev)
             if pre is not None:
                 a = F.mont_mul(FR, a, pre)
-            a = ntt_torch.ntt(plan_r[s], a.reshape(FR.n_words, B * ra, r),
+            a = ntt_torch.ntt(plan_r[i], a.reshape(FR.n_words, B * ra, r),
                               inverse)
             stage1.append(F.mont_mul(FR, a.reshape(FR.n_words, B, ra, r),
                                      mid))
@@ -149,28 +159,64 @@ class MeshNttPlan:
         # the all-to-all: shard s's columns k1 of block t land in shard t's
         # rows j2 of block s, transposed to B[k1, j2]
         stage2 = [torch.empty((FR.n_words, B, rb, c), dtype=torch.int32,
-                              device=dev) for dev in devs]
-        for t, dst in enumerate(stage2):
-            for s, src in enumerate(stage1):
-                tile = src[:, :, :, t * rb:(t + 1) * rb]
-                dst[:, :, :, s * ra:(s + 1) * ra].copy_(
-                    tile.transpose(2, 3))
+                              device=dev) for _, dev in shards]
+        if self.mesh.transport is None:
+            for t, dst in enumerate(stage2):
+                for s, src in enumerate(stage1):
+                    tile = src[:, :, :, t * rb:(t + 1) * rb]
+                    dst[:, :, :, s * ra:(s + 1) * ra].copy_(
+                        tile.transpose(2, 3))
+        else:
+            self._exchange(stage1, stage2)
         del stage1
 
-        # stage 2 on every shard: c-point rows, inverse coset post-scale;
-        # then B's row blocks back to the lead in natural order
+        # stage 2 on every shard held here: c-point rows, inverse coset
+        # post-scale; then B's row blocks to the lead in natural order
         out = torch.empty((FR.n_words, B, n), dtype=torch.int32,
                           device=lead)
         x_all = out.reshape(FR.n_words, B, c, r)    # X[k1 + r k2] at [k2, k1]
-        for t, dev in enumerate(devs):
-            _, _, post = tabs[t]
-            y = ntt_torch.ntt(plan_c[t], stage2[t].reshape(
+        ys = []
+        for i, (t, dev) in enumerate(shards):
+            _, _, post = tabs[i]
+            y = ntt_torch.ntt(plan_c[i], stage2[i].reshape(
                 FR.n_words, B * rb, c), inverse).reshape(FR.n_words, B, rb,
                                                          c)
             if post is not None:
                 y = F.mont_mul(FR, y, post)
-            x_all[:, :, :, t * rb:(t + 1) * rb].copy_(y.transpose(2, 3))
+            if self.mesh.transport is None:
+                x_all[:, :, :, t * rb:(t + 1) * rb].copy_(y.transpose(2, 3))
+            else:
+                ys.append(y.to(lead))
+        if ys:
+            # every process's row blocks, (D, 8, B, r/D, c) in shard order
+            blocks = self.mesh.transport.all_gather(torch.stack(ys)).reshape(
+                self.mesh.size, FR.n_words, B, rb, c)
+            x_all.view(FR.n_words, B, c, self.mesh.size, rb).copy_(
+                blocks.permute(1, 2, 4, 0, 3))
         return out
+
+    def _exchange(self, stage1, stage2):
+        """The all-to-all across processes: every tile (s, t) of the shards
+        s held here goes, transposed, into slot rank(t) of one send buffer
+        ((W, k, k, 8, B, r/D, c/D), packed in (s, t) order), one collective
+        moves the slots, and each received tile lands at rows j2 of block s
+        of shard t's B. Tiles between shards of this process ride the
+        buffer's own slot, so the result always passes the collective."""
+        mesh = self.mesh
+        w, k = mesh.world, len(stage1)
+        B = stage1[0].shape[1]
+        ra, rb = self.rows_a, self.rows_b
+        send = torch.empty((w, k, k, FR.n_words, B, rb, ra),
+                           dtype=torch.int32, device=mesh.lead)
+        for i, src in enumerate(stage1):
+            # (8, B, c/D, r) -> its tiles by destination shard (q, j)
+            send[:, i].copy_(src.view(FR.n_words, B, ra, w, k, rb)
+                             .permute(3, 4, 0, 1, 5, 2))
+        recv = mesh.transport.all_to_all(send)
+        for j, dst in enumerate(stage2):
+            # tiles (p, i) -> rows of block s = p k + i
+            dst.view(FR.n_words, B, rb, w, k, ra).copy_(
+                recv[:, :, j].permute(2, 3, 4, 0, 1, 5))
 
     def kernel(self, inverse=False, coset=False):
         """(8, n) -> (8, n) Montgomery-boundary transform on the lead."""

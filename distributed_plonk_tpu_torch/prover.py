@@ -742,6 +742,12 @@ class PipelinedProver:
     narrow the overlap; they never change bytes."""
 
     def __init__(self, backend, depth=None, abort_on=(), observer=None):
+        if getattr(backend, "issues_collectives", False):
+            # its executor thread and the finalizing thread would both
+            # reach the collectives, in an order no other process follows
+            raise ValueError("PipelinedProver: the backend's collectives "
+                             "must be issued from one thread; use prove "
+                             "or prove_many")
         self.backend = backend
         self.depth = max(1, int(depth if depth is not None
                                 else PIPELINE_DEPTH))

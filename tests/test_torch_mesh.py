@@ -80,10 +80,13 @@ def test_mesh_ntt_uneven_rc_batched(mesh8, inverse, coset):
 
 def test_mesh_of_one_repeated_device():
     """Four shards on one device run the 4-way sharded code; the mesh API
-    (size, lead, submesh) and the refusals."""
+    (size, lead, submesh; one process: no transport, every shard held)
+    and the refusals, init_multihost's argument check among them."""
     mesh = make_mesh(4, device="cpu")
     assert mesh.size == 4 and mesh.devices == (torch.device("cpu"),) * 4
     assert mesh.lead == torch.device("cpu")
+    assert mesh.transport is None and (mesh.world, mesh.first) == (1, 0)
+    assert [s for s, _ in mesh.shards()] == [0, 1, 2, 3]
     assert make_submesh(mesh.devices[:2]).size == 2
     values = _fr_values(64, 64)
     plan = MeshNttPlan(mesh, 64)
@@ -93,8 +96,8 @@ def test_mesh_of_one_repeated_device():
         Mesh([])
     with pytest.raises(ValueError):
         MeshNttPlan(mesh, 8)            # 8 = 2 x 4: 2 rows for 4 shards
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_multihost("localhost:1", 2, 0)
+    with pytest.raises(ValueError, match="process_id"):
+        init_multihost("localhost:1", 2, 2, device="cpu")
 
 
 def test_make_mesh_defaults_to_the_cards(monkeypatch):
