@@ -56,7 +56,15 @@ class NullMetrics:
 class LivenessTracker:
     """Per-worker consecutive-failure circuit breaker with probe backoff."""
 
-    def __init__(self, n_workers, metrics=None):
+    def __init__(self, n_workers, metrics=None, breaker_k=BREAKER_K,
+                 probe_base_s=PROBE_BASE_S, probe_max_s=PROBE_MAX_S):
+        """breaker_k consecutive failures open a worker's breaker; its
+        re-admission probes back off from probe_base_s, doubling up to
+        probe_max_s (the JAX package's DPT_BREAKER_K / DPT_PROBE_*_MS
+        defaults)."""
+        self.breaker_k = breaker_k
+        self.probe_base_s = probe_base_s
+        self.probe_max_s = probe_max_s
         self.metrics = metrics or NullMetrics()
         self._rng = random.Random()
         self._lock = threading.Lock()
@@ -103,9 +111,9 @@ class LivenessTracker:
         closed."""
         opened = not s["open"]
         s["open"] = True
-        s["failures"] = max(s["failures"], BREAKER_K)
+        s["failures"] = max(s["failures"], self.breaker_k)
         if opened:
-            s["probe_backoff"] = PROBE_BASE_S
+            s["probe_backoff"] = self.probe_base_s
             s["next_probe"] = now + self._jitter(s["probe_backoff"])
         return opened
 
@@ -143,13 +151,13 @@ class LivenessTracker:
         with self._lock:
             s = self._state[i]
             s["failures"] += 1
-            opened = not s["open"] and s["failures"] >= BREAKER_K
+            opened = not s["open"] and s["failures"] >= self.breaker_k
             if opened:
                 s["open"] = True
             if s["open"]:
                 # failure while open (probe failed): back off the next probe
                 s["probe_backoff"] = min(
-                    PROBE_MAX_S, (s["probe_backoff"] * 2) or PROBE_BASE_S)
+                    self.probe_max_s, (s["probe_backoff"] * 2) or self.probe_base_s)
                 s["next_probe"] = now + self._jitter(s["probe_backoff"])
         if opened:
             self.metrics.inc("fleet_breaker_opens")
@@ -188,7 +196,7 @@ class LivenessTracker:
             if not s["open"] or s["suspect"] or now < s["next_probe"]:
                 return False
             s["next_probe"] = now + self._jitter(
-                s["probe_backoff"] or PROBE_BASE_S)
+                s["probe_backoff"] or self.probe_base_s)
             return True
 
     def due_probes(self):

@@ -5,7 +5,7 @@ The process half of the self-healing fleet (runtime/membership.py is the
 fleet half): a WorkerSupervisor owns N local worker SUBPROCESSES,
 
     python -m distributed_plonk_tpu_torch.runtime.worker --join H:P
-        --listen H:P [--device DEV] [--store DIR]
+        --listen H:P [--device DEV] [--store DIR] [--build-dir DIR]
 
 watches each one's liveness through the HEALTH probe with a
 consecutive-miss budget, and respawns dead or wedged ones with jittered
@@ -83,9 +83,10 @@ class _Slot:
     """One supervised worker: its reserved address, live subprocess, and
     flap bookkeeping. Mutated only under the supervisor's lock."""
 
-    def __init__(self, port, store_dir=None):
+    def __init__(self, port, store_dir=None, build_dir=None):
         self.port = port
         self.store_dir = store_dir
+        self.build_dir = build_dir
         self.proc = None
         self.misses = 0
         self.backoff = 0.0
@@ -105,10 +106,14 @@ class WorkerSupervisor:
                  probe_interval_s=PROBE_INTERVAL_S,
                  backoff_base_s=BACKOFF_BASE_S, backoff_max_s=BACKOFF_MAX_S,
                  flap_cap=FLAP_CAP, flap_window_s=FLAP_WINDOW_S, cwd=None,
-                 spawn_cmd=None):
+                 spawn_cmd=None, build_dirs=None,
+                 retire_timeout_s=RETIRE_TIMEOUT_S):
         """device: the workers' --device (None: the card); store_dirs:
         per-slot artifact-store dirs (workers then serve STORE_FETCH and
-        warm-rejoin on respawn); spawn_cmd(slot_index, slot) -> argv
+        warm-rejoin on respawn); build_dirs: per-slot kernel build
+        directories (--build-dir; None: the checkout's, shared);
+        retire_timeout_s: retire_slot's per-phase budget by default;
+        spawn_cmd(slot_index, slot) -> argv
         replaces the worker command line (`worker_cmd` gives the default
         to extend; tests inject crash-looping commands)."""
         self.join_host, self.join_port = join_host, join_port
@@ -122,14 +127,17 @@ class WorkerSupervisor:
         self.backoff_max_s = backoff_max_s
         self.flap_cap = flap_cap
         self.flap_window_s = flap_window_s
+        self.retire_timeout_s = retire_timeout_s
         self._rng = random.Random()
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._watcher = None
         store_dirs = list(store_dirs or [])
+        build_dirs = list(build_dirs or [])
         self.slots = [
             _Slot(reserve_port(host),
-                  store_dirs[i] if i < len(store_dirs) else None)
+                  store_dirs[i] if i < len(store_dirs) else None,
+                  build_dirs[i] if i < len(build_dirs) else None)
             for i in range(n)]
 
     # -- lifecycle ------------------------------------------------------------
@@ -180,12 +188,13 @@ class WorkerSupervisor:
         registry.subscribe(_on_event)
         return self
 
-    def add_slot(self, store_dir=None):
+    def add_slot(self, store_dir=None, build_dir=None):
         """Grow the supervised fleet by one slot at runtime (scale-up):
         the new worker takes the exact JOIN path of every other member.
         Returns the slot index; the worker is spawned immediately."""
         with self._lock:
-            self.slots.append(_Slot(reserve_port(self.host), store_dir))
+            self.slots.append(_Slot(reserve_port(self.host), store_dir,
+                                    build_dir))
             i = len(self.slots) - 1
         self._spawn(i)
         return i
@@ -203,7 +212,7 @@ class WorkerSupervisor:
         nothing respawns it, and the retire is not a flap. Returns True
         iff this call performed the retire (False: already retired /
         failed)."""
-        budget = RETIRE_TIMEOUT_S if timeout_s is None else timeout_s
+        budget = self.retire_timeout_s if timeout_s is None else timeout_s
         with self._lock:
             slot = self.slots[i]
             if slot.retired or slot.failed:
@@ -303,6 +312,8 @@ class WorkerSupervisor:
             cmd += ["--device", str(self.device)]
         if slot.store_dir is not None:
             cmd += ["--store", slot.store_dir]
+        if slot.build_dir is not None:
+            cmd += ["--build-dir", slot.build_dir]
         return cmd
 
     def _cmd(self, i, slot):

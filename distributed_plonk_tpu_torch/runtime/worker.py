@@ -56,12 +56,24 @@ default load: `run` calibrates a plan-less store), and a --join worker
 again after its warm sync, which pulls `autotune:` plans with the bucket
 keys.
 
+Kernel build (store/kernels.py): on the card, before its first kernel
+load, the worker takes the first of its build directory (`--build-dir
+DIR`, default the checkout's), its own store's `kbuild:` artifact, the
+roster's store peers (a --join worker, right after the JOIN reply) and
+nvcc, and publishes the loaded build into its own store when the store
+lacks it (a store-serving worker hands the build on). The pull runs
+before the accept loop starts (early connects wait in the bound
+listener's backlog), so no request can start nvcc while a pull is due;
+an nvcc build runs on a thread while the worker serves (a request's
+first kernel load waits for it). HEALTH and METRICS_FETCH report where
+the libraries came from under `build` (backend/_build.build_report).
+
 Run: python -m distributed_plonk_tpu_torch.runtime.worker <index>
-    <network.json> [--device cuda|cpu] [--store DIR] [--faults RULES]
-    [--autotune off|load|run]
+    <network.json> [--device cuda|cpu] [--store DIR] [--build-dir DIR]
+    [--faults RULES] [--autotune off|load|run]
   or python -m distributed_plonk_tpu_torch.runtime.worker --join H:P
-    [--listen H:P] [--device cuda|cpu] [--store DIR] [--faults RULES]
-    [--autotune off|load|run]
+    [--listen H:P] [--device cuda|cpu] [--store DIR] [--build-dir DIR]
+    [--faults RULES] [--autotune off|load|run]
 """
 
 import json
@@ -246,6 +258,9 @@ class WorkerState:
                 "warm": self.warm,
                 # this process's peak device memory (MiB; 0 on the CPU)
                 "peak_mib": _peak_mib(self.backend.device),
+                # where the kernel libraries came from (source None on
+                # the CPU, which loads none)
+                "build": _build.report(),
             }
 
     def peer(self, p):
@@ -710,6 +725,7 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                 "traces": len(state.traces),
                 "log_seq": olog.buffer().seq,
                 "autotune": state.autotune,
+                "build": _build.report(),
             })
         conn.send(protocol.OK, json.dumps(snap).encode())
     elif tag == protocol.LOG_FETCH:
@@ -766,11 +782,14 @@ def _run_server(listener, state, ready_event=None):
     listener.close()
 
 
-def _make_state(device, store_dir, faults, **kw):
+def _make_state(device, store_dir, faults, build_dir=None, **kw):
     """The worker's backend on `device` (None: the card, raising without
     one; "cpu" runs the kernels' plain versions), its artifact store at
-    `store_dir` (served over STORE_FETCH/STORE_LIST) and its data-plane
-    rules (`faults`: the text form of runtime/faults.py, or None)."""
+    `store_dir` (served over STORE_FETCH/STORE_LIST), its data-plane
+    rules (`faults`: the text form of runtime/faults.py, or None) and the
+    kernels' build directory (None: the checkout's)."""
+    if build_dir is not None:
+        _build.set_build_dir(build_dir)
     backend = TorchBackend(device)
     stages = StageKernels(backend.device)
     store = None
@@ -805,19 +824,37 @@ def _load_calibration(state, mode):
     return rep
 
 
+def _provision_kernels(state, peers=()):
+    """Give the worker its kernel libraries before its first load, on the
+    card only (store/kernels.ensure_build: the build directory, its own
+    store, `peers`, else nvcc on a thread; the loaded build is published
+    into its own store). Returns backend/_build.build_report's copy, which
+    HEALTH serves as `build`."""
+    if state.backend.device.type != "cuda":
+        return None
+    from ..store import kernels
+    rep = kernels.ensure_build(state.store, peers,
+                               device=state.backend.device,
+                               metrics=state.metrics)
+    olog.emit("worker", "kernel_build", worker=state.me, **rep)
+    return rep
+
+
 def serve(index, config, device=None, ready_event=None, store_dir=None,
-          faults=None, autotune="load"):
+          faults=None, autotune="load", build_dir=None):
     """Static-fleet daemon: index and config fixed at startup (epoch 0)."""
     host, port = config.workers[index]
-    state = _make_state(device, store_dir, faults, config=config, me=index)
-    _load_calibration(state, autotune)
+    state = _make_state(device, store_dir, faults, build_dir=build_dir,
+                        config=config, me=index)
     listener = native.Listener(host, port)
+    _provision_kernels(state)
+    _load_calibration(state, autotune)
     _run_server(listener, state, ready_event=ready_event)
 
 
 def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
                  store_dir=None, faults=None, ready_event=None,
-                 autotune="load"):
+                 autotune="load", build_dir=None):
     """Dynamic-membership daemon (`--join host:port`): build the backend
     (a worker that cannot reach its device raises before it joins), bind
     (port 0 = ephemeral), announce to the membership server, adopt the
@@ -829,10 +866,16 @@ def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
     is schedulable from the JOIN reply; the sync only speeds up first
     touches, it gates nothing. Before the sync the worker only LOADS a
     local plan: a joiner must not spend its start measuring when a peer
-    may hold this card's plan; `autotune` applies after the sync."""
+    may hold this card's plan; `autotune` applies after the sync.
+
+    The kernel build is the exception: it is pulled (or found) between
+    the JOIN reply and the accept loop, synchronously, because a request
+    that reached the worker first would start minutes of nvcc inside its
+    kernel load (_provision_kernels; the JOIN's store peers are its third
+    tier). Early requests wait in the listener's backlog meanwhile."""
     from . import membership
     from ..backend import autotune as _autotune
-    state = _make_state(device, store_dir, faults)
+    state = _make_state(device, store_dir, faults, build_dir=build_dir)
     _load_calibration(state, "load" if autotune != "off" else "off")
     host, port = listen_addr
     listener = native.Listener(host, port)
@@ -845,17 +888,18 @@ def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
         state.epoch = int(reply["epoch"])
     olog.emit("worker", "joined", worker=state.me, port=port,
               epoch=state.epoch, device=str(state.backend.device))
+    me = f"{host}:{port}"
+    peers = [(h, int(p)) for h, p in (
+        a.rsplit(":", 1) for a in reply.get("stores", []) if a != me)]
+    _provision_kernels(state, peers)
 
     def warm_sync():
         from ..store import remote as store_remote
-        me = f"{host}:{port}"
-        peers = [tuple(a.rsplit(":", 1)) for a in reply.get("stores", [])
-                 if a != me]
         stats = {"warm_rejoin_s": 0.0, "artifacts": 0, "peers": 0,
                  "errors": 0}
         if state.store is not None and peers:
-            stats = store_remote.warm_sync(
-                state.store, [(h, int(p)) for h, p in peers])
+            stats = store_remote.warm_sync(state.store, peers)
+        stats["kernel_build"] = _build.report()
         if _autotune.active_plan() is None:
             _load_calibration(state, autotune)
         state.warm = stats
@@ -885,13 +929,14 @@ def _parse_hostport(s):
 
 USAGE = ("usage: python -m distributed_plonk_tpu_torch.runtime.worker "
          "(<index> <network.json> | --join H:P [--listen H:P]) "
-         "[--device cuda|cpu] [--store DIR] [--faults RULES] "
-         "[--autotune off|load|run]")
+         "[--device cuda|cpu] [--store DIR] [--build-dir DIR] "
+         "[--faults RULES] [--autotune off|load|run]")
 
 
 def main(argv):
     device, argv = _pop_flag(argv, "--device")
     store_dir, argv = _pop_flag(argv, "--store")
+    build_dir, argv = _pop_flag(argv, "--build-dir")
     faults, argv = _pop_flag(argv, "--faults")
     join, argv = _pop_flag(argv, "--join")
     listen, argv = _pop_flag(argv, "--listen")
@@ -906,12 +951,13 @@ def main(argv):
                      _parse_hostport(listen) if listen
                      else ("127.0.0.1", 0),
                      device, store_dir=store_dir, faults=faults,
-                     autotune=autotune)
+                     autotune=autotune, build_dir=build_dir)
         return
     if len(argv) != 2 or listen is not None:
         raise SystemExit(USAGE)
     serve(int(argv[0]), NetworkConfig.load(argv[1]), device,
-          store_dir=store_dir, faults=faults, autotune=autotune)
+          store_dir=store_dir, faults=faults, autotune=autotune,
+          build_dir=build_dir)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
         --store-dir /var/dpt/store [--journal-dir /var/dpt/journal] \
         [--device cuda|cuda:1|cpu] [--devices cuda:0,cuda:0,...] \
         [--queue-depth 64] [--max-batch 8] [--retries 2] [--timeout 300] \
-        [--obs-port 0] [--chaos [--faults SPEC]] [--verify]
+        [--obs-port 0] [--chaos [--faults SPEC]] [--verify] \
+        [--build-dir DIR]
 
 The counterpart of the JAX package's scripts/serve.py, with its flags
 (minus the autoscaler) and the same wire protocol: clients drive it with
@@ -12,6 +13,10 @@ either package's ServiceClient. --device is where keys build and pool
 workers prove (default: the card; without one the daemon exits with an
 error unless --device cpu asks for the kernels' plain versions);
 --devices lists the slots mesh-class jobs lease (default: every card).
+On the card the kernels come from --build-dir (default: the checkout's
+build directory), else the store's `kbuild:` artifact, else the
+--store-peers, else nvcc; a service with a store publishes its build
+there (store/kernels.py), and METRICS says which under `build`.
 
 --journal-dir enables the crash-safe job journal: every submitted job
 survives a crash or restart (in-flight ones resume from their
@@ -114,6 +119,9 @@ def parse_args(argv=None):
                     help="comma-separated slots mesh-class jobs lease, "
                          "e.g. cuda:0,cuda:0,cuda:0,cuda:0 (default: "
                          "every card)")
+    ap.add_argument("--build-dir", default=None,
+                    help="the kernels' build directory (default: the "
+                         "checkout's build/dpt_torch_kernels)")
     ap.add_argument("--chaos", action="store_true")
     ap.add_argument("--faults", default=None,
                     help="';'-separated fault rules for --chaos, e.g. "
@@ -130,9 +138,13 @@ def main(argv=None):
     if args.journal_dir is not None:
         journal_dir = validate_journal_dir(args.journal_dir)
 
+    from ..backend import _build
     from ..obs import log as olog
     from ..runtime.faults import FaultInjector, Rule
     from .server import ObsServer, ProofService
+
+    if args.build_dir is not None:
+        _build.set_build_dir(args.build_dir)
 
     log_path = None
     if args.log_dir is not None:
@@ -185,7 +197,8 @@ def main(argv=None):
                       "workers": args.workers, "chaos": args.chaos,
                       "device": str(svc.device),
                       "store": args.store_dir, "journal": journal_dir,
-                      "log_file": log_path, "autotune": svc.autotune}),
+                      "log_file": log_path, "autotune": svc.autotune,
+                      "build": _build.report()}),
           flush=True)
     svc.serve_forever()
     if obs is not None:

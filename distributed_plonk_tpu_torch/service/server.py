@@ -40,12 +40,20 @@ prove's kernel events into the kernel_*_gflops / mfu_*_pct gauges. With
 a store, `start()` first adopts the store's kernel plan for this card
 (store/calibration.py, `autotune="off"|"load"|"run"`) and reports it in
 `autotune`.
+
+Kernel build (store/kernels.py): on the card, `start()` gives the process
+its kernel libraries before anything loads them: the build directory,
+the store's `kbuild:` artifact, then the `store_peers`, else nvcc on a
+thread. A service with a store publishes its build there once the
+kernels are loaded (the counterpart of the JAX serve.py's compile cache
+under the store). METRICS reports where they came from under `build`.
 """
 
 import os
 import threading
 import time
 
+from ..backend import _build
 from ..backend.field_torch import resolve_device
 from ..obs import log as olog
 from ..runtime import native, protocol
@@ -635,7 +643,14 @@ class ProofService:
         the pool's threads start: a calibrated store's plan is adopted
         before any job launches a kernel, and a second start against it
         measures nothing. A failed pickup leaves the built-in constants
-        in force and says so in `autotune` ({"source": "error", ...})."""
+        in force and says so in `autotune` ({"source": "error", ...}).
+        On the card the kernel build is provisioned before both
+        (store/kernels.ensure_build; see the module docstring)."""
+        if self.device.type == "cuda":
+            from ..store import kernels
+            olog.emit("service", "kernel_build", **kernels.ensure_build(
+                self.store, list(self.buckets.peers), device=self.device,
+                metrics=self.metrics))
         if self.store is not None:
             from ..store import calibration
             try:
@@ -849,6 +864,7 @@ class ProofService:
             snap = self.metrics.snapshot()
             snap["gauges"]["queue_depth"] = self.queue.depth()
             snap["gauges"]["queue_high_water"] = self.queue.high_water
+            snap["build"] = _build.report()
             conn.send(protocol.OK, protocol.encode_json(snap))
         elif tag == protocol.KILL_WORKER:
             if not self.chaos:

@@ -8,14 +8,15 @@ copy of the JAX package's store/, with the same blob formats):
                     aggregate and profile artifacts
     remote.py       STORE_FETCH / STORE_LIST: pull blobs from a peer
                     (digest-verified) and serve them; warm_sync of the
-                    `bucket:` and `autotune:` artifacts
+                    `bucket:` and `autotune:` artifacts; sync_kernel_build
     warmstart.py    shape warmup: keys through the tiers, prover stages
-                    through TorchBackend.warm_stages
+                    through TorchBackend.warm_stages, the kernel build
+                    published with --aot
     calibration.py  kernel plans (backend/autotune.py) per card under
                     `autotune:<fingerprint>`; load_or_run at start-up
-
-Not ported: the JAX compile cache under the store (the port's counterpart,
-the nvcc build directory as an artifact, is still to come).
+    kernels.py      the kernels' nvcc build as `kbuild:<hash>:sm_<cc>`
+                    (the counterpart of the JAX compile cache under the
+                    store): publish, install_from_store, ensure_build
 
 Consumers: service.scheduler.BucketCache (memory -> disk -> build tiers),
 the WARMUP and STORE_FETCH wire tags (service/server.py), the port's

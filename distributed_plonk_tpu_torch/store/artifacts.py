@@ -186,7 +186,10 @@ class ArtifactStore:
     # -- public API -----------------------------------------------------------
 
     def keys(self):
+        """Every key on disk now: another process's writes (an offline
+        warmup provisioning a store a worker already serves) included."""
         with self._lock:
+            self._merge_from_disk()
             return sorted(self._manifest["entries"])
 
     def stats(self):

@@ -1,5 +1,6 @@
 """Cross-host artifact fetch: pull store blobs from a serving peer (a copy
-of the JAX package's store/remote.py, minus its JAX compile-cache files).
+of the JAX package's store/remote.py; its JAX compile-cache sync becomes
+`sync_kernel_build`, the pull of the kernels' packed nvcc build).
 
 The client side of the STORE_FETCH wire tag (runtime/protocol.py): a fresh
 or replacement host asks a peer that already holds an artifact (bucket
@@ -20,7 +21,12 @@ package's, so either package's client fetches from either's server.
 Warm rejoin (`warm_sync`): a worker that JOINs the fleet with a store
 pulls every missing `WARM_SYNC_PREFIXES` artifact from the roster's
 store-serving peers, so a replacement finds its bucket keys without a
-rebuild.
+rebuild. The kernel build (`kbuild:`, store/kernels.py) is not among
+them: a worker pulls it first, on its own, through `sync_kernel_build`
+(only this card's key), and its warm stats report that pull. A JAX
+worker's warm_sync skips `kbuild:` keys and this one skips the JAX
+package's `jaxcache:` keys: the prefixes tell them apart on the same
+wire.
 """
 
 import hashlib
@@ -142,6 +148,33 @@ def list_keys(host, port, prefix="", timeout_ms=10000):
 # parameters per card (store/calibration.py). Checkpoints and proofs stay
 # fetch-on-demand (they are job-scoped, not shape-scoped).
 WARM_SYNC_PREFIXES = ("bucket:", "autotune:")
+
+
+def sync_kernel_build(store, peers, cap, timeout_ms=30000, metrics=None):
+    """Pull this card's packed kernel build (store/kernels.artifact_key)
+    from the first peer that lists it, through fetch_into (the blob
+    re-hashed against the peer's digest before it lands in `store`), and
+    install it from `store` (re-verified there). Returns whether a build
+    installed (backend/_build.build_report then says `peer`, its bytes
+    and install seconds); each failed fetch or refused install is
+    counted as kernel_build_pull_errors."""
+    from . import kernels
+    metrics = metrics or NullMetrics()
+    key = kernels.artifact_key(cap)
+    for host, port in peers:
+        try:
+            listed = list_keys(host, port, prefix=key, timeout_ms=timeout_ms)
+        except (FetchError, ConnectionError, OSError):
+            continue
+        if key not in listed:
+            continue
+        if fetch_into(store, host, port, key, timeout_ms=timeout_ms) is None:
+            metrics.inc("kernel_build_pull_errors")
+            continue
+        if kernels.install_from_store(store, cap, metrics=metrics,
+                                      source="peer") is not None:
+            return True
+    return False
 
 
 def warm_sync(store, peers, prefixes=WARM_SYNC_PREFIXES, timeout_ms=10000):

@@ -1,6 +1,6 @@
 """Warm-start layer: shape warmup ahead of the first job (a copy of the JAX
-package's store/warmstart.py, minus its JAX compile cache under the
-store).
+package's store/warmstart.py; its JAX compile cache under the store
+becomes the kernels' packed nvcc build, store/kernels.py).
 
 Two cold-start costs dominate serving a new circuit shape: trusted-setup
 and key construction, and the first build of the prover's stages. The
@@ -8,8 +8,11 @@ artifact store (artifacts.py + keycache.py) removes the first across
 restarts; `aot_warmup` pays the second before any job arrives, through
 the backend's `warm_stages` (on TorchBackend: the kernels' nvcc build,
 the NttPlans at the shape's two domain sizes, round 3's tables and the
-window-shifted commit key). The nvcc build directory is not a store
-artifact yet: each process builds or finds it under build/.
+window-shifted commit key). With an AOT backend on the card, `warm_spec`
+then publishes this process's kernel build into the store as its
+`kbuild:` artifact, where the JAX package re-bounds its compile cache:
+a worker or service provisioned from that store loads the kernels
+without running nvcc.
 """
 
 import time
@@ -35,7 +38,9 @@ def warm_spec(store, spec_obj, device=None, aot_backend=None):
     """Offline store provisioning: make sure `store` holds the bucket keys
     for one wire spec, building them on `device` (None: the card) only on
     a disk miss; `aot_backend` additionally builds the shape's prover
-    stages. Returns a summary dict ({source: disk|built})."""
+    stages and, on the card, publishes the kernel build into `store`
+    (`kernel_build`: the artifact's key and bytes; kept when the store
+    already holds it). Returns a summary dict ({source: disk|built})."""
     from ..service import jobs as J
 
     spec = J.JobSpec.from_wire(spec_obj)
@@ -56,4 +61,9 @@ def warm_spec(store, spec_obj, device=None, aot_backend=None):
                "domain_size": vk.domain_size, "build_s": round(build_s, 6)}
     if aot_backend is not None:
         out["aot"] = aot_warmup(aot_backend, vk.domain_size, ck=pk.ck)
+        dev = getattr(aot_backend, "device", None)
+        if getattr(dev, "type", None) == "cuda":
+            from . import kernels
+            out["kernel_build"] = kernels.publish_if_missing(
+                store, kernels.capability(dev))
     return out

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of distributed_plonk_tpu_torch and not
-chip_smoke.py imports jax or anything of the JAX package (an AST scan),
+"""The port stands alone: no module of distributed_plonk_tpu_torch, not
+chip_smoke.py and no `scripts/torch_*.py` script imports jax or anything
+of the JAX package (an AST scan), the scripts read no environment either,
 and importing every module of the port in a fresh interpreter leaves
 neither in sys.modules. Two checks reach what an import scan cannot: no
 string in the port names a module of the JAX package (a `python -m
@@ -22,8 +23,15 @@ PORT = pathlib.Path(distributed_plonk_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "distributed_plonk_tpu")
 
 
+def _scripts():
+    files = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(files) >= 6
+    return files
+
+
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        _scripts()
     assert len(files) > 20
     return files
 
@@ -212,3 +220,27 @@ def test_the_observability_and_calibration_modules_stand_alone(
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", ["torch_warmup.py", "torch_fleet.py",
+                                  "torch_loadgen.py", "torch_autotune.py",
+                                  "torch_warm_ab.py",
+                                  "torch_service_contention.py"])
+def test_the_port_scripts_stand_alone(name):
+    """Every scripts/torch_*.py is among the scanned sources, imports
+    nothing of jax or of the JAX package (its lazy imports inside
+    functions included) and reads no environment: its settings are flags
+    and constants."""
+    path = ROOT / "scripts" / name
+    assert path in _sources()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names] + \
+        [node.module or "" for node in ast.walk(tree)
+         if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert names and not any(_forbidden(n) for n in names)
+    reads = ["%s:%d %s" % (name, node.lineno, node.attr)
+             for node in ast.walk(tree)
+             if isinstance(node, ast.Attribute)
+             and node.attr in ("environ", "getenv", "environb")]
+    assert reads == []
