@@ -7,8 +7,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 1. Set-up: the card's name and power limit (nvidia-smi), the kernels'
    build from csrc/ (nvcc, all sources in parallel), and, while nvcc
    runs, the reference v1 circuit and its host SRS (tau = 0xDEADBEEF),
-   phase 8's v2 circuit and phase 10's zoo circuits, and, in a child
-   process, phase 10's CPU proves (zoo_cpu_child).
+   phase 8's v2 circuit and phase 10's zoo circuits, and, in child
+   processes, phase 10's CPU proves (zoo_cpu_child) and phase 17's host
+   half of the static verifier (analysis_cpu_child).
 2. Kernel parity: each kernel entry against its plain torch version on
    the card, on seeded inputs at the main path's shapes, with tolerance 0
    (every value is an integer in canonical form, every addition in a
@@ -176,6 +177,18 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    Both ranks must report the same values and launch K1-K4. Meanwhile
    this process runs (c): a one-process NCCL group's 2-shard mesh NTT at
    2^16, its collectives on device tensors, equal to the single card.
+17. Analysis (analysis_checks): the static verifier. Its host half
+   (`python -m distributed_plonk_tpu_torch.analysis --strict --device
+   cpu`: lints, carry contracts, aten-graph bounds and exact values of
+   every registry entry) and its seeded mutants ran in the set-up's child
+   and must be clean, every mutant rejected. Here
+   `registry.run_values(device="cuda")` holds every entry that has a
+   kernel to its value contract on the card: kernel 1 (Fr and Fq, plain,
+   broadcast and strided, to_mont, from_mont, poly_eval), kernel 2 (all
+   four modes in 1-3 passes), kernel 3's msm_digits, and one main-path
+   shape each (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
+   msm_digits over a round-1 batch of 5 handles of width n + 2); the
+   three must launch. Each kernel record gains `analysis_entries`.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -968,6 +981,111 @@ def zoo_cpu_child(out_path):
         json.dump(out, f)
     os.replace(out_path + ".tmp", out_path)
     return 0
+
+
+def analysis_cpu_child(out_path):
+    """python3 chip_smoke.py --analysis-cpu OUT: the port's static
+    verifier on the host (`python -m distributed_plonk_tpu_torch.analysis
+    --strict --device cpu`: lints, carry contracts, interval bounds and
+    exact values of every registry entry) and its seeded mutants
+    (check_mutants); no card touched. Writes the pass counts, the mutant
+    verdicts and the seconds to OUT. The set-up runs it beside nvcc;
+    phase 17 reads it."""
+    from distributed_plonk_tpu_torch.analysis import mutants
+    from distributed_plonk_tpu_torch.analysis.__main__ import \
+        main as analysis_main
+    torch.set_num_threads(1)
+    summary = {}
+    t = time.perf_counter()
+    rc = analysis_main(["--strict", "--device", "cpu", "-q"],
+                       summary=summary)
+    cli_s = time.perf_counter() - t
+    verdicts = []
+    t = time.perf_counter()
+    errors = mutants.check_mutants(
+        progress=lambda name, by, rejected: verdicts.append(
+            [name, by, rejected]))
+    out = {"rc": rc, "summary": summary, "cli_s": cli_s,
+           "mutants": verdicts, "mutant_errors": errors,
+           "mutants_s": time.perf_counter() - t}
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(out_path + ".tmp", out_path)
+    return 0 if rc == 0 and not errors else 1
+
+
+ANALYSIS_KERNELS = ("mont_mul", "ntt", "msm_digits")
+
+
+def analysis_checks(smi, child, out_path, log_path, kernels):
+    """Phase 17: the static verifier. The host half ran in the set-up's
+    child (analysis_cpu_child): it must be clean, with every mutant
+    rejected. Here the card half: run_values(device="cuda") holds every
+    registry entry that has a kernel (kernel 1 on Fr and Fq, broadcast
+    and strided, and through to_mont, from_mont and poly_eval; kernel 2
+    in all four modes in 1-3 passes; kernel 3's msm_digits) and the
+    main-path shapes of registry.card_entries() (kernel 1 at 2^16 lanes,
+    kernel 2 at n = 2^13 in each mode, msm_digits over a v1 round-1
+    batch) to their value contracts on the card, with the launch
+    counters zeroed before and read after. Sets each kernel record's
+    `analysis_entries`: the value entries held on the card."""
+    from distributed_plonk_tpu_torch.analysis import registry as AR
+    from distributed_plonk_tpu_torch.backend import _build
+    t = time.perf_counter()
+    if child.wait(timeout=600) != 0:
+        with open(log_path) as f:
+            raise AssertionError("the static verifier's host passes failed "
+                                 "(child):\n" + f.read()[-6000:])
+    with open(out_path) as f:
+        host = json.load(f)
+    summ = host["summary"]
+    print("analysis child (started in the set-up, waited %.3f s): lint %d "
+          "finding(s); contracts %s; bounds %s; values on the host %s "
+          "(checked, violations); %.3f s; mutants %d/%d rejected in %.3f s"
+          % (time.perf_counter() - t, summ["lint"], summ["contracts"],
+             summ["bounds"], summ["values_cpu"], host["cli_s"],
+             sum(1 for _, _, r in host["mutants"] if r),
+             len(host["mutants"]), host["mutants_s"]), flush=True)
+    assert summ["failures"] == 0 and host["rc"] == 0, summ
+    assert host["mutant_errors"] == [], host["mutant_errors"]
+    assert host["mutants"] and all(r for _, _, r in host["mutants"])
+
+    entries = [e for e in AR.build_registry() + AR.card_entries()
+               if e.kernel is not None and e.value is not None]
+    rows = []
+    last = [time.perf_counter()]
+
+    def progress(name, violations):
+        now = time.perf_counter()
+        rows.append((name, len(violations), now - last[0]))
+        last[0] = now
+    _build.reset_launches()
+    t = time.perf_counter()
+    violations, checked = AR.run_values(strict=True, device="cuda",
+                                        entries=entries, progress=progress)
+    sync()
+    card_s = time.perf_counter() - t
+    launches = read_launches("the analysis phase", ANALYSIS_KERNELS)
+    by_name = {e.name: e for e in entries}
+    for name, nbad, secs in rows:
+        e = by_name[name]
+        print("analysis card %-42s %-10s samples %d  %.3f s  %s"
+              % (name, e.launches, e.value.samples, secs,
+                 "ok" if nbad == 0 else "%d VIOLATION(S)" % nbad),
+              flush=True)
+    for v in violations:
+        print("  %s" % v, flush=True)
+    assert violations == [], [str(v) for v in violations]
+    assert checked == len(entries), (checked, len(entries))
+    counts = {k: sum(1 for e in entries if e.launches == k)
+              for k in ANALYSIS_KERNELS}
+    for name, rec in kernels.items():
+        rec["analysis_entries"] = counts.get(name, 0)
+    print("analysis on the card (%s): %d value entries held to their "
+          "contracts in %.3f s; entries per kernel %s; launches %s"
+          % (smi, checked, card_s, json.dumps(counts),
+             json.dumps({k: launches[k] for k in ANALYSIS_KERNELS})),
+          flush=True)
 
 
 def zoo_checks(dev, built, cpu_ref):
@@ -2326,6 +2444,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--zoo-cpu"] and len(argv) == 2:
         return zoo_cpu_child(argv[1])
+    if argv[:1] == ["--analysis-cpu"] and len(argv) == 2:
+        return analysis_cpu_child(argv[1])
     if argv[:1] == ["--multihost-child"] and len(argv) == 5:
         return multihost_child(int(argv[1]), argv[2], argv[3], argv[4])
     if argv:
@@ -2351,7 +2471,7 @@ def stop_process(p):
 
 
 def run_phases(cleanup):
-    """Phases 1-16; appends to `cleanup` what must run at the end (the
+    """Phases 1-17; appends to `cleanup` what must run at the end (the
     processes it starts are stopped there)."""
     from distributed_plonk_tpu_torch import curve as C, kzg, proof_io
     from distributed_plonk_tpu_torch.checkpoint import ProverCheckpoint
@@ -2432,6 +2552,15 @@ def run_phases(cleanup):
             [sys.executable, os.path.abspath(__file__), "--zoo-cpu",
              zoo_out], cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
     cleanup.append(lambda: stop_process(zoo_cpu))
+    # the static verifier's host passes and its mutants (phase 17), in a
+    # child beside nvcc too
+    analysis_out = os.path.join(zoo_dir, "analysis_cpu.json")
+    analysis_log = os.path.join(zoo_dir, "analysis_cpu.log")
+    with open(analysis_log, "w") as log:
+        analysis_cpu = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--analysis-cpu",
+             analysis_out], cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    cleanup.append(lambda: stop_process(analysis_cpu))
     # nvcc runs in child processes; this thread makes the host SRS, the v2
     # circuit and the zoo's circuits (pure Python) meanwhile
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3424,6 +3553,12 @@ def run_phases(cleanup):
     for name, rec in kernels.items():
         rec["multihost_launches"] = mh_launches[name]
     done("multi-process mesh", t0)
+
+    # --- 17. the static verifier: its host passes ran in the set-up's
+    # child; here the kernels held to the same value contracts on the card
+    t0 = phase("analysis")
+    analysis_checks(smi, analysis_cpu, analysis_out, analysis_log, kernels)
+    done("analysis", t0)
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels
     print(json.dumps({"kernels": [kernels[k] for k in (

@@ -26,8 +26,11 @@ def proj_inf(batch_shape, device):
     """Identity in homogeneous projective coordinates: (0 : 1 : 0)."""
     shape = (FQ_WORDS,) + tuple(batch_shape)
     zero = torch.zeros(shape, dtype=torch.int32, device=device)
+    # clone, not contiguous(): the callers write into these in place, and
+    # functionalization (torch.func, the static verifier's trace) takes
+    # contiguous() of an expanded tensor for the expand view itself
     one = F.const(FQ, FQ_MONT_R, device, len(shape)).expand(shape)
-    return (zero, one.contiguous(), zero.clone())
+    return (zero, one.clone(), zero.clone())
 
 
 def from_affine(x, y, inf_mask):

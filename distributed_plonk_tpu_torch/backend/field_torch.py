@@ -55,6 +55,80 @@ FQ = FieldSpec("Fq", 1, Q_MOD, FQ_WORDS, FQ_MONT_R, FQ_MONT_R2,
                FQ_MONT_INV, FQ_MONT_INV32)
 
 
+# Side conditions that intervals cannot prove: a value spread across words
+# stays below 2p, a carry out is zero, a running sum fits its words. Each is
+# a named inequality over a FieldSpec's real constants that the port's
+# static verifier (analysis/bounds.py::check_contracts) evaluates for Fr and
+# Fq; "where" names the code that relies on it ("csrc/field.cuh:N" quotes
+# "quote" from that line). The interval pass proves the plain versions'
+# int64 arithmetic never wraps; these prove what that arithmetic assumes
+# of the moduli, and what the CUDA bodies assume, whose carry chains no
+# interval reaches.
+
+def _r(spec):
+    return 1 << (32 * spec.n_words)
+
+
+CARRY_CONTRACTS = (
+    {"name": "reduce_once_fits",
+     "where": "field_torch._reduce_once, add",
+     "claim": "a + b < 2p <= 2^(32L): add's sum fits L words plus a carry "
+              "of at most 1, and _reduce_once's one conditional subtract "
+              "of (hi:w) < 2p leaves a canonical value",
+     "holds": lambda spec: 2 * spec.mod <= _r(spec)},
+    {"name": "sweep32_columns",
+     "where": "field_torch._sweep32 (add, sub, _reduce_once)",
+     "claim": "_sweep32's callers feed columns of at most three terms below "
+              "2^32 (a + ~b + 1, w + (2^(32L) - p)): each column plus its "
+              "carry in (< 4) stays below 2^62, as its docstring asks",
+     "holds": lambda spec: 3 * (1 << 32) + 4 < 1 << 62},
+    {"name": "mont_hi_fits",
+     "where": "field_torch.mont_mul_ref",
+     "claim": "for a, b < p the Montgomery high half (a*b + m*p) / R is "
+              "< 2p (p^2 + R*p <= 2*p*R, i.e. p <= R), so the one "
+              "conditional subtract leaves a canonical value",
+     "holds": lambda spec: spec.mod ** 2 + _r(spec) * spec.mod
+              <= 2 * spec.mod * _r(spec)},
+    {"name": "mont_ref_columns_int64",
+     "where": "field_torch.mont_mul_ref (_mul_cols, _sweep16)",
+     "claim": "mont_mul_ref's 16-bit column sums stay below 2^62: a column "
+              "of t + m*p takes at most 2 * 2L products of two 16-bit "
+              "limbs plus a carry in below 2^47",
+     "holds": lambda spec: 4 * spec.n_words * ((1 << 16) - 1) ** 2
+              + (1 << 47) < 1 << 62},
+    {"name": "cuh_reduce_once_top_bit",
+     "where": "csrc/field.cuh:114",
+     "quote": "t < 2p (< 2^(32N): both moduli leave the",
+     "claim": "fe_reduce_once takes t < 2p < 2^(32N): t fits N words, and "
+              "one borrow chain decides t >= p",
+     "holds": lambda spec: 2 * spec.mod < _r(spec)},
+    {"name": "cuh_add_no_carry_out",
+     "where": "csrc/field.cuh:128",
+     "quote": "a + b < 2p < 2^(32N), so no carry leaves the top",
+     "claim": "fe_add's sum of two values < p is < 2p - 1 < 2^(32N): its "
+              "top word's addc drops no carry",
+     "holds": lambda spec: 2 * (spec.mod - 1) < _r(spec)},
+    {"name": "cuh_cios_row_fits",
+     "where": "csrc/field.cuh:161-170",
+     "quote": "both moduli satisfy 2p < 2^(32N) with room",
+     "claim": "the top word of p is below 2^31 - 1, and CIOS's running sum "
+              "before a row's division, T + a*b_i + m*p < 2p + 2^32 * 2p, "
+              "stays under 2^(32N + 32): the odd array's reduction chain "
+              "carries out 0, and no spare word is needed",
+     "holds": lambda spec: (spec.mod >> (32 * (spec.n_words - 1)))
+              < (1 << 31) - 1
+              and 2 * spec.mod * ((1 << 32) + 1) <= _r(spec) << 32},
+    {"name": "cuh_mont_final_fits",
+     "where": "csrc/field.cuh:258",
+     "quote": "the sum is even + (odd >> 32) < 2p",
+     "claim": "after the last CIOS row the sum (a*b + M*p) / R < 2p for "
+              "a, b < p and M < R, and 2p < 2^(32N): the final carry chain "
+              "fits N words and fe_reduce_once's precondition holds",
+     "holds": lambda spec: spec.mod ** 2 + _r(spec) * spec.mod
+              <= 2 * spec.mod * _r(spec) and 2 * spec.mod < _r(spec)},
+)
+
+
 def device_of(device):
     """torch.device with its index filled in ("cuda" -> "cuda:0")."""
     return torch.empty(0, device=device).device
@@ -83,6 +157,13 @@ def _wide(a):
 def _narrow(w):
     """int64 in [0, 2^32) -> int32 with the same 32 bits."""
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
+
+
+def pad_words(v, n):
+    """v zero-padded along its last axis to n entries. An int zero:
+    torch.nn.functional.pad passes its value as a float, a float literal
+    in the word kernels' graphs."""
+    return torch.constant_pad_nd(v, (0, n - v.shape[-1]), 0)
 
 
 _COLS = {}

@@ -84,7 +84,7 @@ def window_bits(n):
 def _canon_words(v, padded_n):
     """(8, ..., L) Montgomery handles -> (8, ..., padded_n) canonical int64
     words (zero coefficients pad the tail); plain multiply by 1."""
-    v = torch.nn.functional.pad(v, (0, padded_n - v.shape[-1]))
+    v = F.pad_words(v, padded_n)
     return F._wide(F.mont_mul_ref(FR, v, F.const(FR, 1, v.device, v.dim())))
 
 
@@ -553,8 +553,8 @@ class MsmContext:
         """(8, L <= n) handles -> one (8, B, n) zero-padded batch."""
         for h in hs:
             assert h.shape[1] <= self.n, (tuple(h.shape), self.n)
-        return torch.stack([torch.nn.functional.pad(
-            h.to(self.device), (0, self.n - h.shape[1])) for h in hs], dim=1)
+        return torch.stack([F.pad_words(h.to(self.device), self.n)
+                            for h in hs], dim=1)
 
     def bucket_planes(self, v):
         """(8, B, n) Montgomery Fr scalars on this context's device -> the

@@ -243,7 +243,7 @@ def poly_eval(polys, zs, chunk=256):
     L8, B, L = polys.shape
     chunk = max(1, min(chunk, L))
     lanes = -(-L // chunk)
-    v = torch.nn.functional.pad(polys, (0, lanes * chunk - L))
+    v = F.pad_words(polys, lanes * chunk)
     v = v.reshape(L8, B, lanes, chunk)
     acc = torch.zeros((L8, B, lanes), dtype=polys.dtype, device=polys.device)
     for j in range(chunk - 1, -1, -1):
@@ -287,7 +287,7 @@ def add_vanishing_blind(coeffs, b, n):
     """coeffs + blind(X) * (X^n - 1) for a small (8, d1) Montgomery blind:
     out has length n + d1; out[n+i] += b_i, out[i] -= b_i."""
     d1 = b.shape[1]
-    ext = torch.nn.functional.pad(coeffs, (0, n + d1 - coeffs.shape[1]))
+    ext = F.pad_words(coeffs, n + d1)
     head = _sub(ext[:, :d1], b)
     tail = _add(ext[:, n:n + d1], b)
     return torch.cat([head, ext[:, d1:n], tail], dim=1)

@@ -120,6 +120,7 @@ class TorchBackend:
             with self._cache_lock:
                 hit = cache.get(key)
                 if hit is None:
+                    # analysis: ok(generic helper; each _cached call is linted)
                     self._cache_put(cache, key, built)
                     hit = built
         return hit
@@ -157,6 +158,7 @@ class TorchBackend:
         """Seed the pk-poly cache with the handles preprocess computed on
         device, so the prover never re-lifts them through the host."""
         with self._cache_lock:
+            # analysis: ok(sel_h, sig_h are pk's polys, made from pk)
             self._cache_put(self._pk_polys, id(pk),
                             (pk, list(sel_h), list(sig_h)))
 
@@ -214,8 +216,7 @@ class TorchBackend:
     # --- NTTs ---------------------------------------------------------------
 
     def _pad(self, h, size):
-        return torch.nn.functional.pad(h, (0, size - h.shape[-1])) \
-            if h.shape[-1] < size else h
+        return F.pad_words(h, size) if h.shape[-1] < size else h
 
     def _ntt_batches(self, domain, hs, inverse, coset, width):
         """Yield (8, B, size) NTT results covering hs in order, B <= width:
@@ -376,6 +377,7 @@ class TorchBackend:
             limbs.lift_scalar(gamma, self.device, 3))
 
     def _domain_tables(self, m, n, group_gen):
+        # analysis: ok(group_gen generates the size-m domain: a function of m)
         return self._cached(self._domain_tabs, (m, n), lambda: (
             PT.domain_tables(m, n, FR_GENERATOR, group_gen, self.device)))
 

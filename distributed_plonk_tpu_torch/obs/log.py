@@ -13,8 +13,22 @@ trace-filtered events into its `trace:<job_id>` timeline artifact, and
 ObsServer serves the ring at /logs. A process that owns its own lifetime
 can tee every event to a JSONL file sink (`configure(log_dir=...)`).
 
-Subsystems the port emits:
+Subsystems the port emits (the static verifier's LOG01 lint holds every
+`emit("subsystem", ...)` literal to this list; the name column ends at the
+first run of two or more spaces):
 
+    dispatcher   fleet client decisions: quarantines, MSM range
+                 adoptions, FFT replans and degradations, re-admissions
+    membership   roster changes: joins, rejoins, leaves, challenge
+                 verdicts, roster pushes that failed
+    supervisor   worker-process lifecycle: respawns, wedge kills,
+                 flap-cap giveups
+    integrity    result-integrity verdicts: failed phase checks,
+                 duplicate-execution mismatches, challenge outcomes
+    autoscale    closed-loop controller decisions: scale verdicts, lease
+                 resizes, sensor and actuator errors
+    store        artifact-store events: kernel builds published, pulled
+                 or refused
     service      serving-plane verdicts: shed/rejected jobs, retries,
                  self-verify blocks, drain outcomes
     aggregate    batch-KZG aggregation verdicts: aggregates built

@@ -72,6 +72,7 @@ class StageKernels:
             if hit is None:
                 if len(self._tables) >= self._TABLE_CAP:
                     self._tables.pop(next(iter(self._tables)))
+                # analysis: ok(generic helper; each _cached call is linted)
                 hit = self._tables[key] = built
         return hit
 

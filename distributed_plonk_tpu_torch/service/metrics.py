@@ -199,6 +199,51 @@ METRICS_FETCH / LOG_FETCH / PROFILE, service/server.py):
     profile_errors                           captures that failed or came
                                              back empty/unsupported
 
+Fleet recovery, membership and result-integrity vocabulary (runtime/
+dispatcher.py, runtime/health.py, runtime/integrity.py, runtime/
+membership.py, runtime/supervisor.py, service/scheduler.py):
+    fleet_reconnects / fleet_backoff_waits   reconnect loop activity
+    fleet_backoff (histogram)                seconds slept in backoff
+    fleet_breaker_opens / fleet_readmissions  circuit-breaker transitions
+    fleet_range_adoptions                    MSM ranges moved off a dead
+                                             worker
+    fleet_ntt_reroutes / fleet_eval_reroutes  NTT and evaluation calls
+                                             sent to another worker
+    fleet_fft_replans / fleet_fft_degraded   sharded-FFT recovery events
+    membership_leaves                        members declared permanently
+                                             gone (flap cap, operator)
+    roster_pushes                            epoch tables pushed to live
+                                             workers after a change
+    warm_rejoins                             JOIN phase=ready reports
+                                             carrying warm-sync stats
+    warm_rejoin_s (histogram)                seconds a joiner spent
+                                             pulling artifacts from peers
+    supervisor_probe_misses                  liveness probes a supervised
+                                             worker failed to answer
+    bucket_peers_added / bucket_peers_removed  store-serving members
+                                             registered as key-fetch
+                                             peers / parked
+    integrity_checks                         algebraic phase checks run
+    integrity_failures                       checks that caught a wrong
+                                             (well-formed) answer
+    integrity_msm_dups / integrity_eval_dups  MSM ranges / evaluation
+                                             chunks executed twice
+    workers_quarantined                      workers marked SUSPECT by an
+                                             attributed integrity failure
+    integrity_challenges                     known-answer challenge proves
+                                             run against (re-)joining
+                                             quarantined addresses
+    integrity_challenges_failed              challenges a joiner failed
+
+Autoscaler vocabulary (service/autoscale.py):
+    autoscale_*                              controller activity:
+                                             autoscale_ticks (loop
+                                             cycles), autoscale_decisions
+                                             (recorded verdicts),
+                                             autoscale_sensor_errors /
+                                             autoscale_actuator_errors
+                                             (failed reads and moves)
+
 Kernel-autotune vocabulary (backend/autotune.py, store/calibration.py):
     autotune_runs                            calibration measure passes
                                              started (mode=run on a
@@ -456,6 +501,7 @@ class Metrics:
                 "uptime_s": round(uptime, 3),
                 "counters": dict(self._counters),
                 "gauges": dict(self._gauges),
+                # analysis: ok(Histogram.snapshot is a lockless data object)
                 "histograms": {k: h.snapshot()
                                for k, h in sorted(self._hists.items())},
                 "throughput_jobs_per_s": round(done / uptime, 6) if uptime else 0.0,

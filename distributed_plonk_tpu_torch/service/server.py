@@ -555,6 +555,7 @@ class ProofService:
                 # (JobJournal serializes internally; _recover runs before
                 # the scheduler/listener threads exist, so the submit
                 # lock is not needed here)
+                # analysis: ok(journal locks itself; recovery is single-threaded)
                 self.journal.append(JN.SHED, job.id,
                                     reason="ttl expired during restart")
                 self.metrics.inc("jobs_shed")

@@ -244,3 +244,31 @@ def test_the_port_scripts_stand_alone(name):
              if isinstance(node, ast.Attribute)
              and node.attr in ("environ", "getenv", "environb")]
     assert reads == []
+
+
+_ANALYSIS_STDLIB = {"argparse", "ast", "glob", "json", "math", "operator",
+                    "os", "re", "sys", "time"}
+
+
+@pytest.mark.parametrize("rel", ["analysis/__init__.py",
+                                 "analysis/__main__.py", "analysis/bounds.py",
+                                 "analysis/values.py", "analysis/registry.py",
+                                 "analysis/lint.py", "analysis/mutants.py"])
+def test_the_analysis_modules_stand_alone(rel):
+    """The port's static verifier is among the scanned sources; its
+    modules (lazy imports inside functions included) import torch, numpy,
+    the standard library and the port, never jax or anything of the JAX
+    package (not even its poly oracle or its samplers), and read no
+    environment."""
+    path = PORT / rel
+    assert path in _sources()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    absolute = [a.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names] + \
+        [node.module or "" for node in ast.walk(tree)
+         if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert not any(_forbidden(n) for n in absolute)
+    tops = {n.split(".")[0] for n in absolute}
+    assert tops <= {"torch", "numpy"} | _ANALYSIS_STDLIB, tops
+    assert not any(isinstance(node, ast.Attribute) and node.attr in (
+        "environ", "getenv", "environb") for node in ast.walk(tree))
