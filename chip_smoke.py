@@ -21,7 +21,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    2^13 and 2^16 and is timed at round 3's batch of 25. The MSM entries
    (msm_digits, bucket_sums, msm_tail) run one round-1 commit batch, 5
    handles of width n + 2 over the commit key's window-shifted copy
-   (304,288 points), whose build time is printed with the sort's.
+   (304,288 points), whose build time is printed with the sort's. Round
+   3's folds (csrc/round3.cu: r3_gate_fold, r3_sigma_fold, r3_combine)
+   against their plain versions on seeded words with the corners 0, 1
+   and r - 1, at v1's shapes (13 selector planes, 5 sigma planes, the
+   combine, all at 2^16 lanes) and v2's (4 planes at 2^21 from selector
+   4, 4 from sigma 0, the combine at 2^21), each timed beside its
+   plain version and its bound.
 3. Full-width prove: the height-32 Rescue Merkle membership circuit
    (n = 2^13, quotient domain 2^16) preprocessed and proven on
    TorchBackend() cold, then proven again warm; both proofs must equal
@@ -30,16 +36,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    it (the elementwise add builds the shifted key there), then zeroed
    before the warm prove and read after it: every other kernel must have
    launched there, the MSM entries once per commit batch, the NTT at most
-   3 launches per call, and the elementwise add not at all.
+   3 launches per call, each round-3 fold once (the fused round 3: 13
+   selectors and 5 sigmas in one batch each at m = 2^16), and the
+   elementwise add not at all.
 4. Device SRS: universal_setup_device(n + 2) (the fixed-base walk: 32
    mixed-add launches of kernel 4, then kernel 1) equals the host SRS of
    phase 1 power for power; the workload preprocessed from it has the
    host path's vk, and its cold and warm proves equal the fixture.
-5. Round 3: a warm prove through the streamed round 3 (the default) and
-   one with the backend's streamed hooks set to None, both equal to the
-   fixture, with their peak device memory; then one warm prove under
-   CUDA's sync debug mode: the host synchronisations per round and the
-   call chains in the port that make them.
+5. Round 3: a warm prove through the fused round 3 (the default:
+   quotient_poly_streamed, one kernel per fold), one with
+   quotient_poly_streamed set to None on the backend (the streamed round
+   3, the unfused steps) and one with both hooks None (one-shot), each
+   equal to the fixture, with round 3's seconds (the device drained at
+   its end) and its peak device memory above the resident (the fused
+   no higher than the streamed), the round-3 folds launched only on the
+   fused path; five pairs of warm proves, fused and streamed in ABBA
+   order (r3_ab: the medians of the prove's and of round 3's seconds);
+   then one warm prove under CUDA's sync debug mode: the host
+   synchronisations per round and the call chains in the port that make
+   them.
 6. Checkpoint: for k = 1..4 a prove stopped right after saving round k
    resumes in the same process to the fixture and removes its file; the
    snapshot sizes and the dump, write, load and restore seconds.
@@ -49,8 +64,12 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    per second for each driver.
 8. v2, the reference's 2^18 workload at full size (50 Merkle proofs,
    n = 2^18, quotient domain 2^21): the device SRS of 2^18 + 3 powers,
-   preprocess, a cold and a warm prove and one with the one-shot round 3
-   (all three identical), verify, per-round spans and peak device memory.
+   preprocess, a cold and a warm prove (the fused round 3: 4 gate-fold,
+   2 sigma-fold and 1 combine launches) and one each with the streamed
+   and the one-shot round 3 (all four identical, round 3's peak memory
+   fused no higher than streamed), verify, per-round spans and peak
+   device memory; five pairs of warm proves, fused and streamed in ABBA
+   order (r3_ab).
 9. Mesh, four shards on this card (make_mesh(4): one process, every
    shard's kernels on the card): dryrun_multichip(4) (a mesh iNTT and
    coset NTT, an MSM and a tiny prove against their oracles);
@@ -146,7 +165,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    per clock x the maximum SM clock nvidia-smi reports); a traced warm
    prove of v1 and of v2, whose kernel events fold into the
    kernel_<stage>_gflops / mfu_<stage>_pct gauges (Metrics.
-   observe_kernels), each of the 8 stages present and each share in
+   observe_kernels), each of the 7 stages present (round 3's coset FFTs,
+   folds and coset iNTT in quotient_stream_fused) and each share in
    (0, 100]; then store/calibration.load_or_run(mode="run") on a fresh
    store at n = 2^13: the NTT cell at 2^16 (kernel 2's pass split and
    tile) and the MSM cell at 2^13 (kernel 3's chunk over one prove's
@@ -157,7 +177,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 15. Device time: torch.profiler's CUDA kernel times for one launch of
    each kernel at its parity shape, and for one more warm prove of the
    2^13 and of the v2 workload (device busy time by kernel and the idle
-   share; "not measured" if the profiler records no CUDA events); then
+   share; "not measured" if the profiler records no CUDA events), and
+   round 3 alone on a warm prove's operands at v1 and v2, fused against
+   streamed (equal outputs; CUDA-event ms, device busy ms and kernel
+   launches by name); then
    each kernel's "ms", its device time: CUDA events around the replay of
    a CUDA graph of its launches, the same for the stage panels of phase
    11 and the mesh NTTs of phase 9, each beside the single-card ntt of
@@ -187,8 +210,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    broadcast and strided, to_mont, from_mont, poly_eval), kernel 2 (all
    four modes in 1-3 passes), kernel 3's msm_digits, and one main-path
    shape each (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
-   msm_digits over a round-1 batch of 5 handles of width n + 2); the
-   three must launch. Each kernel record gains `analysis_entries`.
+   msm_digits over a round-1 batch of 5 handles of width n + 2), and round
+   3's three folds at 8 and at 2^12 lanes; the six must launch. Each
+   kernel record gains `analysis_entries`.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -224,7 +248,7 @@ import warnings
 import torch
 
 from distributed_plonk_tpu_torch.trace import (FQ_MUL_IMADS, FR_MUL_IMADS,
-                                               IMAD_PER_SM_CLOCK)
+                                               IMAD_PER_SM_CLOCK, Tracer)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "proof_merkle_h32_p1.hex")
@@ -322,12 +346,16 @@ def _profiler():
 
 def graph_kernels(runs, kernels):
     """Each kernel's device time at its parity shape from a CUDA graph of
-    its launches, into kernels[name]["ms"] where it has a record."""
+    its launches, into kernels[name]["ms"] where it has a record (a run
+    named "<kernel> v2": into that record's "v2" shape)."""
     for name, (fn, reps) in runs.items():
         ms = graph_ms(fn, reps)
         print("graph time  %-20s %.4f ms per call" % (name, ms))
+        base, _, shape = name.partition(" ")
         if name in kernels:
             kernels[name]["ms"] = ms
+        elif shape == "v2" and base in kernels:
+            kernels[base]["v2"]["ms"] = ms
 
 
 def profile_kernels(runs):
@@ -369,6 +397,89 @@ def profile_prove(fn, label="warm prove"):
     copies = [(c, us) for k, c, us in rows if "Memcpy DtoD" in k]
     print("device-to-device copies in the profiled warm prove: %d, %.1f us"
           % (sum(c for c, _ in copies), sum(us for _, us in copies)))
+
+
+def r3_ab(be, ckt, pk, want, label, pairs=5):
+    """Warm proves of one workload alternating the fused and the streamed
+    round 3 (quotient_poly_streamed set to None on the backend), in ABBA
+    order over `pairs` pairs, each equal to `want`: every prove's seconds
+    and its round3 span's (a host synchronisation ends each prove), and
+    their medians."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.prover import prove
+    secs = {"fused": [], "streamed": []}
+    r3 = {"fused": [], "streamed": []}
+    for i in range(pairs):
+        for name in (("fused", "streamed") if i % 2 == 0
+                     else ("streamed", "fused")):
+            if name == "streamed":
+                be.quotient_poly_streamed = None
+            try:
+                tr = Tracer()
+                t = time.perf_counter()
+                proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
+                sync()
+                secs[name].append(time.perf_counter() - t)
+            finally:
+                be.__dict__.pop("quotient_poly_streamed", None)
+            r3[name].append(tr.totals(0)["round3"])
+            assert proof_io.serialize_proof(proof) == want, (label, name)
+    med = {k: (sorted(v)[len(v) // 2], sorted(r3[k])[len(v) // 2])
+           for k, v in secs.items()}
+    print("%s warm proves, %d pairs in ABBA order, each equal to its "
+          "reference bytes: median prove / round3 seconds fused %.4f / "
+          "%.4f, streamed %.4f / %.4f; prove seconds %s; round3 seconds %s"
+          % (label, pairs, med["fused"][0], med["fused"][1],
+             med["streamed"][0], med["streamed"][1],
+             json.dumps({k: [round(x, 4) for x in v]
+                         for k, v in secs.items()}),
+             json.dumps({k: [round(x, 4) for x in v]
+                         for k, v in r3.items()})), flush=True)
+    return med
+
+
+def round3_profile(be, ckt, pk, label):
+    """Round 3 alone, fused (quotient_poly_streamed) against streamed
+    (quotient_streamed, then the coset iNTT: every prove's path before the
+    fused one), on the operands of a warm prove's round 3: equal outputs,
+    CUDA-event milliseconds (median of three) and, under torch.profiler,
+    device busy milliseconds and kernel launches by name."""
+    from distributed_plonk_tpu_torch.prover import prove
+    box = []
+    fused = be.quotient_poly_streamed
+
+    def spy(*args):
+        box.append(args)
+        return fused(*args)
+    be.quotient_poly_streamed = spy
+    try:
+        prove(random.Random(1), ckt, pk, be)
+    finally:
+        del be.quotient_poly_streamed
+    args = box[0]
+    paths = {"fused": lambda: be.quotient_poly_streamed(*args),
+             "streamed": lambda: be.coset_ifft_h(
+                 args[2], be.quotient_streamed(*args))}
+    assert torch.equal(paths["fused"](), paths["streamed"]()), label
+    out = {}
+    for name, fn in paths.items():
+        ms = sorted(_events_ms(fn) for _ in range(3))[1]
+        sync()
+        with _profiler() as prof:
+            fn()
+            sync()
+        rows = _device_kernels(prof)
+        rec = {"ms": ms, "busy_ms": sum(r[2] for r in rows) / 1e3 if rows
+               else None, "launches": sum(r[1] for r in rows) if rows
+               else None}
+        out[name] = rec
+        print("%s round 3 alone, %s: %.4f ms (CUDA events); profiled: "
+              "device busy %s ms over %s kernel launches" % (
+                  label, name, ms, rec["busy_ms"], rec["launches"]))
+        for key, count, us in rows[:8]:
+            print("  %-60s %6d launches %10.1f us" % (key[:60], count, us))
+    print("%s round 3 alone: %s" % (label, json.dumps(out)), flush=True)
+    return out
 
 
 def ptxas_report(log):
@@ -481,7 +592,22 @@ def call_spread(fn, reps):
     return out
 
 
-PATH_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail")
+# the four TPU kernels' entries on every prove's path (a fleet worker's,
+# a mesh's, the streamed and one-shot round 3's), and the fused round 3's
+# folds, on the path of every single-card TorchBackend prove
+BASE_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail")
+R3_KERNELS = ("r3_gate_fold", "r3_sigma_fold", "r3_combine")
+PATH_KERNELS = BASE_KERNELS + R3_KERNELS
+# the fused round 3's launches per warm prove: v1 (m = 2^16) folds its 13
+# selectors and 5 sigmas in one batch each; v2 (m = 2^21, 4 planes a
+# batch) in 4 and 2
+R3_LAUNCHES = {"v1": {"r3_gate_fold": 1, "r3_sigma_fold": 1,
+                      "r3_combine": 1},
+               "v2": {"r3_gate_fold": 4, "r3_sigma_fold": 2,
+                      "r3_combine": 1}}
+# the backend hooks set to None for the unfused round 3s
+STREAMED_R3 = {"quotient_poly_streamed": None}
+ONE_SHOT_R3 = {"quotient_poly_streamed": None, "quotient_streamed": None}
 
 
 def read_launches(label, names=PATH_KERNELS):
@@ -509,6 +635,25 @@ def reset_peak():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated()
+
+
+class Round3Peak(Tracer):
+    """A Tracer that also takes the device's peak memory above what was
+    allocated when the prove's round3 span opened (peak_mib, MiB), the
+    device drained at both ends of the span."""
+
+    peak_mib = None
+
+    @contextlib.contextmanager
+    def span(self, name, parent=None, **attrs):
+        if name != "round3":
+            with super().span(name, parent=parent, **attrs) as sid:
+                yield sid
+            return
+        mem0 = reset_peak()
+        with super().span(name, parent=parent, **attrs) as sid:
+            yield sid
+            self.peak_mib = peak_mib(mem0)
 
 
 class SyncCounter:
@@ -733,7 +878,7 @@ def fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n):
         dd, dist_fft_min=n))
     prove_s = time.perf_counter() - t
     launch_delta(before, worker_launches(dd), "the profiled fleet prove",
-                 PATH_KERNELS)
+                 BASE_KERNELS)
     th.join()
     assert proof_io.serialize_proof(proof) == golden, "profiled fleet prove"
     meta, blob = box["cap"]
@@ -801,6 +946,118 @@ def seeded_words(dev, rng, *shape):
                       device=dev, generator=g)
     v[7] &= 0x3FFFFFFF
     return v
+
+
+# round 3's folds (csrc/round3.cu): the Fr products a lane of each gate
+# selector's term costs and the wire planes it reads (circuit.py order:
+# Q_LC x4, Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC); the combine's products
+# (k_j * beta folded on the host)
+R3_GATE_PRODUCTS = (1, 1, 1, 1, 2, 2, 4, 4, 4, 4, 1, 0, 5)
+R3_GATE_WIRES = ((0,), (1,), (2,), (3,), (0, 1), (2, 3), (0,), (1,), (2,),
+                 (3,), (4,), (), (0, 1, 2, 3, 4))
+R3_COMBINE_PRODUCTS = 14
+R3_SOURCE = "distributed_plonk_tpu_torch/csrc/round3.cu"
+# no pallas_call: the JAX function each fold replaces (its XLA epilogue or
+# prologue of the coset NTT under DPT_R3_FUSE)
+R3_REPLACES = {
+    "r3_gate_fold": "distributed_plonk_tpu/backend/jax_backend.py:418",
+    "r3_sigma_fold": "distributed_plonk_tpu/backend/jax_backend.py:428",
+    "r3_combine": "distributed_plonk_tpu/backend/jax_backend.py:437"}
+# phase 2's shapes: m, the gate batch (start, count), the sigma batch;
+# v1's one launch each, and v2's widest (selectors 4-7, Q_MUL into Q_HASH;
+# sigmas 0-3)
+R3_PARITY = (("v1", 1 << 16, (0, 13), (0, 5), 20),
+             ("v2", 1 << 21, (4, 4), (0, 4), 5))
+
+
+def r3_work(name, m, start=0, count=0):
+    """(bytes, IMADs) of one fold launch over m lanes: each input plane
+    read once and the output written once; FR_MUL_IMADS per product."""
+    if name == "r3_gate_fold":
+        qs = range(start, start + count)
+        wires = set().union(*(R3_GATE_WIRES[q] for q in qs))
+        planes = 2 + count + len(wires)
+        products = sum(R3_GATE_PRODUCTS[q] for q in qs)
+    elif name == "r3_sigma_fold":
+        planes, products = 2 + 2 * count, 2 * count
+    else:
+        planes, products = 5 + 6 + 1, R3_COMBINE_PRODUCTS
+    return 32 * m * planes, m * products * FR_MUL_IMADS
+
+
+def r3_words(dev, rng, planes, m):
+    """seeded_words (8, planes, m) with the corners 0, 1 and r - 1 in
+    lanes 0-2 of every plane."""
+    from distributed_plonk_tpu_torch.backend.limbs import (ints_to_words,
+                                                          to_tensor)
+    from distributed_plonk_tpu_torch.constants import R_MOD
+    v = seeded_words(dev, rng, planes, m)
+    v[:, :, :3] = to_tensor(ints_to_words([0, 1, R_MOD - 1], 8),
+                            dev)[:, None, :]
+    return v
+
+
+def r3_parity(dev, rng, record, plain_ms, kernels, runs, shapes=R3_PARITY):
+    """Phase 2's round-3 rows: r3_gate_fold, r3_sigma_fold and r3_combine
+    against their plain versions (prover_torch.*_ref: the unfused path's
+    steps, their products on kernel 1) on seeded words with corners, at
+    v1's shapes (the `kernels` record) and v2's (its "v2" entry), exact;
+    each timed from Python beside its plain version and its bound, and
+    added to `runs` for the graph time."""
+    for label, m, gate_batch, sigma_batch, reps in shapes:
+        _r3_shape(dev, rng, record, plain_ms, kernels, runs, label, m,
+                  gate_batch, sigma_batch, reps)
+
+
+def _r3_shape(dev, rng, record, plain_ms, kernels, runs, label, m,
+              gate_batch, sigma_batch, reps):
+    """r3_parity at one shape (its own frame: the closures kept in `runs`
+    hold this shape's tensors)."""
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    from distributed_plonk_tpu_torch.constants import R_MOD
+    (gs, gc), (ss, sc) = gate_batch, sigma_batch
+    sel = r3_words(dev, rng, gc, m)
+    sig = r3_words(dev, rng, sc, m)
+    wires = r3_words(dev, rng, 5, m)
+    gate, acc2, z, ep, zh, sh = r3_words(dev, rng, 6, m).unbind(1)
+    tabs = {"ep": ep, "zh_inv": zh, "shifted_inv": sh}
+    k = [rng.randrange(R_MOD) for _ in range(5)]
+    beta, gamma, alpha, asdn = (rng.randrange(R_MOD) for _ in range(4))
+    comb = (wires, z, gate, acc2, tabs, k, beta, gamma, alpha, asdn)
+    cases = (
+        ("r3_gate_fold", "(8, %d, %d) from selector %d" % (gc, m, gs),
+         lambda: PT.gate_fold_cuda(gate, sel, wires, gs),
+         lambda: PT.gate_fold_ref(gate, sel, wires, gs), (gs, gc)),
+        ("r3_sigma_fold", "(8, %d, %d) from sigma %d" % (sc, m, ss),
+         lambda: PT.sigma_fold_cuda(acc2, sig, wires, ss, beta, gamma),
+         lambda: PT.sigma_fold_ref(acc2, sig, wires, ss, beta, gamma),
+         (ss, sc)),
+        ("r3_combine", "(8, 5, %d) + 6 x (8, %d)" % (m, m),
+         lambda: PT.quotient_combine_cuda(*comb),
+         lambda: PT.quotient_combine_ref(*comb), (0, 0)))
+    for name, shape, fn, ref, batch in cases:
+        got = fn()
+        want, pms = plain_ms(ref)
+        err = max_abs_err(got, want)
+        assert err == 0 and torch.equal(got, want), (name, label, err)
+        py_ms = launch_ms(fn, reps)
+        nbytes, imads = r3_work(name, m, *batch)
+        if label == "v1":
+            record(name, R3_SOURCE, R3_REPLACES[name], err, py_ms, pms,
+                   nbytes, imads, shape)
+            runs[name] = (fn, reps)
+            continue
+        kernels[name][label] = {
+            "shape": shape, "ms": None, "launch_ms": py_ms,
+            "plain_ms": pms, "bound_ms": bound_ms(nbytes, imads),
+            "bound_by": bound_by(nbytes, imads), "library_ms": None,
+            "max_abs_err": err}
+        runs["%s %s" % (name, label)] = (fn, reps)
+        print("parity %-18s %-34s exact  launched from Python %.4f ms  "
+              "plain %.3f ms  bound %.4f ms (%s)"
+              % (name, shape, py_ms, pms, bound_ms(nbytes, imads),
+                 bound_by(nbytes, imads)), flush=True)
+    del got, want
 
 
 def mesh_ntt_checks(mesh, sizes, dev, rng, mesh_runs):
@@ -884,7 +1141,7 @@ def mesh_prove_checks(mesh, ckt, pk, vk, want_blob, seed_be, label,
         secs = time.perf_counter() - t
         mib = peak_mib(mem0)
         launches = read_launches("the %s %s mesh prove" % (label, r),
-                                 PATH_KERNELS + ("proj_add",))
+                                 BASE_KERNELS + ("proj_add",))
         assert proof_io.serialize_proof(proof) == want_blob, \
             "%s %s mesh proof differs from the single-card proof" % (label,
                                                                       r)
@@ -1014,7 +1271,8 @@ def analysis_cpu_child(out_path):
     return 0 if rc == 0 and not errors else 1
 
 
-ANALYSIS_KERNELS = ("mont_mul", "ntt", "msm_digits")
+ANALYSIS_KERNELS = ("mont_mul", "ntt", "msm_digits", "r3_gate_fold",
+                    "r3_sigma_fold", "r3_combine")
 
 
 def analysis_checks(smi, child, out_path, log_path, kernels):
@@ -1023,10 +1281,11 @@ def analysis_checks(smi, child, out_path, log_path, kernels):
     rejected. Here the card half: run_values(device="cuda") holds every
     registry entry that has a kernel (kernel 1 on Fr and Fq, broadcast
     and strided, and through to_mont, from_mont and poly_eval; kernel 2
-    in all four modes in 1-3 passes; kernel 3's msm_digits) and the
-    main-path shapes of registry.card_entries() (kernel 1 at 2^16 lanes,
-    kernel 2 at n = 2^13 in each mode, msm_digits over a v1 round-1
-    batch) to their value contracts on the card, with the launch
+    in all four modes in 1-3 passes; kernel 3's msm_digits; round 3's
+    three folds at 8 lanes) and the shapes of registry.card_entries()
+    (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
+    msm_digits over a v1 round-1 batch, the folds at 2^12 lanes) to their
+    value contracts on the card, with the launch
     counters zeroed before and read after. Sets each kernel record's
     `analysis_entries`: the value entries held on the card."""
     from distributed_plonk_tpu_torch.analysis import registry as AR
@@ -1121,8 +1380,9 @@ def zoo_checks(dev, built, cpu_ref):
         got, secs, vk = zoo_prove(ckt, be, 2, dev)
         if label == "TorchBackend":
             rollup = (ckt, be, vk, got[0])
-        read_launches("the rollup's warm %s prove" % label, PATH_KERNELS + (
-            ("proj_add",) if label == "MeshBackend" else ()))
+        read_launches("the rollup's warm %s prove" % label,
+                      BASE_KERNELS + ("proj_add",) if label == "MeshBackend"
+                      else PATH_KERNELS)
         if label == "MeshBackend":
             assert not be.replicated_ntt_calls, be.replicated_ntt_calls
         blobs += got
@@ -1795,7 +2055,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
         # serves only what is left of the prove after its rejoin: it is
         # held to nothing
         total.update(elastic_delta(before, health_launches(d, "step 3", kind),
-                                   "step 3", must=PATH_KERNELS, exempt=(1,)))
+                                   "step 3", must=BASE_KERNELS, exempt=(1,)))
         faults.rules.clear()
 
         # --- 4. a lying worker: quarantine, replace, challenge, rejoin ------
@@ -1985,9 +2245,10 @@ def observe_and_calibrate(golden, v1, v2, n, dev):
               IMAD_PER_SM_CLOCK[(props.major, props.minor)],
               peak / props.multi_processor_count
               / IMAD_PER_SM_CLOCK[(props.major, props.minor)] / 1e6, peak))
+    # the fused round 3 (the default) runs its coset iNTT inside
+    # quotient_stream_fused
     stages = {"ifft_wires", "commit_wires", "ifft_perm", "commit_perm",
-              "quotient_stream", "coset_ifft_quot", "commit_quot",
-              "commit_open"}
+              "quotient_stream_fused", "commit_quot", "commit_open"}
     for label, (c_, b_, p_) in (("v1", v1), ("v2", v2)):
         prove(random.Random(1), c_, p_, b_)
         _build.reset_launches()
@@ -2267,7 +2528,7 @@ def multihost_child(pid, nccl_coord, gloo_coord, workdir, device="cuda:0"):
         secs = time.perf_counter() - t
         mib = peak_mib(mem0)
         got_l = launches()
-        must_launch(got_l, PATH_KERNELS + ("proj_add",))
+        must_launch(got_l, BASE_KERNELS + ("proj_add",))
         blob = proof_io.serialize_proof(proof)
         assert blob == golden, "%s two-process mesh proof" % label
         assert not be.replicated_ntt_calls, be.replicated_ntt_calls
@@ -2426,8 +2687,7 @@ def multihost_checks(smi, ckt, dev, rng):
         "and warm proofs equal to the fixture); %.3f s for both ranks"
         % (V2_POWERS, wall))
     return {k: [got.get(k, 0) for got in per_rank]
-            for k in ("mont_mul", "ntt", "msm_digits", "bucket_sums",
-                      "msm_tail", "proj_add", "proj_add_mixed")}
+            for k in sorted(set().union(*per_rank))}
 
 
 def phase(name):
@@ -2921,6 +3181,10 @@ def run_phases(cleanup):
            launch_ms(runs["proj_add_mixed"][0], 10), pms, 8 * 48 * fb,
            fb * 11 * FQ_MUL_IMADS, "mixed P + Q (12, %d)" % fb)
     del want, out
+
+    # round 3's folds at v1's shapes (13 selectors, 5 sigmas, the combine
+    # at 2^16) and v2's (4 x 2^21, 4 x 2^21, the combine at 2^21)
+    r3_parity(dev, rng, record, plain_ms, kernels, runs)
     done("kernel parity", t0)
 
     # --- 3. full-width prove ----------------------------------------------------
@@ -2957,11 +3221,15 @@ def run_phases(cleanup):
     t = time.perf_counter()
     assert verify(vk, ckt.public_input(), proof, rng=random.Random(2))
     verify_s = time.perf_counter() - t
-    for name in ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail"):
+    for name in PATH_KERNELS:
         assert launches[name] > 0, \
             "kernel %s never launched in the warm prove" % name
         kernels[name]["launches"] = launches[name]
         kernels[name]["launches_in"] = "warm prove"
+    # the fused round 3: one launch per fold (13 selectors and 5 sigmas in
+    # one batch each at m = 2^16)
+    assert {k: launches[k] for k in R3_KERNELS} == R3_LAUNCHES["v1"], \
+        launches
     # one digit decode, accumulation and tail per commit batch (wires,
     # permutation, quotient splits, openings), and no elementwise add
     batches = sum(1 for k in tr_warm.totals(1) if k.startswith("commit"))
@@ -3035,32 +3303,41 @@ def run_phases(cleanup):
     del be_d, pk_d, srs_d
     done("device srs", t0)
 
-    # --- 5. round 3 streamed (the default hook) and one-shot (the hooks
-    # set to None on the backend), and the warm prove's host
-    # synchronisations per round
+    # --- 5. round 3 fused (the default), streamed (quotient_poly_streamed
+    # set to None on the backend) and one-shot (both hooks None), and the
+    # warm prove's host synchronisations per round
     t0 = phase("round 3")
-    one_shot = {"quotient_streamed": None}
-    for label, hooks in (("streamed", {}), ("one-shot", one_shot)):
+    r3_peaks = {}
+    for label, hooks in (("fused", {}), ("streamed", STREAMED_R3),
+                         ("one-shot", ONE_SHOT_R3)):
         for k, v in hooks.items():
             setattr(be, k, v)
         try:
             prove(random.Random(1), ckt, pk, be)     # the path's tables
             mem0 = reset_peak()
             _build.reset_launches()
-            tr = Tracer()
+            tr = Round3Peak()
             t = time.perf_counter()
             proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             assert proof_io.serialize_proof(proof) == golden, label
-            read_launches("the %s warm prove" % label)
-            print("%s round 3: warm prove %.3f s (round3 %.4f s), equal to "
-                  "the fixture; peak device memory above the resident %.1f "
-                  "MiB" % (label, secs, tr.totals(0)["round3"],
-                           peak_mib(mem0)))
+            got = read_launches("the %s warm prove" % label,
+                                PATH_KERNELS if label == "fused"
+                                else BASE_KERNELS)
+            if label != "fused":
+                assert not any(got[k] for k in R3_KERNELS), got
+            r3_peaks[label] = tr.peak_mib
+            print("%s round 3: warm prove %.3f s (round3 %.4f s, the device "
+                  "drained at its end), equal to the fixture; peak device "
+                  "memory above the resident %.1f MiB in the prove, %.1f MiB "
+                  "in round 3" % (label, secs, tr.totals(0)["round3"],
+                                  peak_mib(mem0), tr.peak_mib), flush=True)
         finally:
             for k in hooks:
                 delattr(be, k)
+    assert r3_peaks["fused"] <= r3_peaks["streamed"], r3_peaks
+    r3_ab(be, ckt, pk, golden, "v1 (%s)" % smi)
     per_round, sites = sync_counts(
         lambda tr: prove(random.Random(1), ckt, pk, be, tracer=tr))
     print("host synchronisations per round of the warm prove (sync debug "
@@ -3105,10 +3382,10 @@ def run_phases(cleanup):
                 del be.load_h
             assert proof_io.serialize_proof(proof) == golden, k
             assert not os.path.exists(path)
-            # rounds 4 and 5 run no NTT
+            # rounds 4 and 5 run no NTT and no round-3 fold
             read_launches("the prove resumed after round %d" % k,
                           PATH_KERNELS if k < 3 else
-                          tuple(x for x in PATH_KERNELS if x != "ntt"))
+                          tuple(x for x in BASE_KERNELS if x != "ntt"))
             print("checkpoint after round %d: %d bytes; dump + write %.4f s "
                   "over %d saves; load %.4f s; load_h %.4f s over %d handles;"
                   " resumed prove %.3f s, equal to the fixture"
@@ -3198,14 +3475,16 @@ def run_phases(cleanup):
                                         "bucket_sums", "msm_tail"))
     del srs2
     blobs = []
+    v2_peaks = {}
     for label, hooks in (("cold", {}), ("warm", {}),
-                         ("warm one-shot round 3", one_shot)):
+                         ("warm streamed round 3", STREAMED_R3),
+                         ("warm one-shot round 3", ONE_SHOT_R3)):
         for k, v in hooks.items():
             setattr(be2, k, v)
         try:
             mem0 = reset_peak()
             _build.reset_launches()
-            tr = Tracer()
+            tr = Round3Peak()
             t = time.perf_counter()
             proof2 = prove(random.Random(1), ckt2, pk2, be2, tracer=tr)
             torch.cuda.synchronize()
@@ -3215,18 +3494,27 @@ def run_phases(cleanup):
             for k in hooks:
                 delattr(be2, k)
         blobs.append(proof_io.serialize_proof(proof2))
-        read_launches("the v2 %s prove" % label)
+        got = read_launches("the v2 %s prove" % label,
+                            BASE_KERNELS if hooks else PATH_KERNELS)
+        if label == "warm":
+            assert {k: got[k] for k in R3_KERNELS} == R3_LAUNCHES["v2"], got
+            for k in R3_KERNELS:
+                kernels[k]["launches_v2"] = got[k]
+        v2_peaks[label] = tr.peak_mib
         print("v2 %s prove %.3f s; peak device memory above the resident "
-              "%.1f MiB" % (label, secs, mib))
+              "%.1f MiB in the prove, %.1f MiB in round 3"
+              % (label, secs, mib, tr.peak_mib))
         print("  rounds: " + json.dumps(
             {k: round(v, 4) for k, v in tr.totals(0).items()}))
         print("  spans: " + json.dumps(
             {k: round(v, 4) for k, v in tr.totals(1).items()}))
-    assert blobs[0] == blobs[1] == blobs[2], "v2 proofs differ"
+    assert len(set(blobs)) == 1, "v2 proofs differ"
+    assert v2_peaks["warm"] <= v2_peaks["warm streamed round 3"], v2_peaks
+    r3_ab(be2, ckt2, pk2, blobs[0], "v2 (%s)" % smi)
     t = time.perf_counter()
     assert verify(vk2, ckt2.public_input(), proof2, rng=random.Random(2))
-    print("v2 proofs identical (cold, warm, one-shot round 3); verify ok in "
-          "%.3f s" % (time.perf_counter() - t))
+    print("v2 proofs identical (cold, warm fused, streamed and one-shot "
+          "round 3); verify ok in %.3f s" % (time.perf_counter() - t))
     del proof2
     done("v2", t0)
 
@@ -3240,7 +3528,7 @@ def run_phases(cleanup):
     t = time.perf_counter()
     counts = dryrun_multichip(4)
     sync()
-    read_launches("dryrun_multichip(4)", PATH_KERNELS + ("proj_add",))
+    read_launches("dryrun_multichip(4)", BASE_KERNELS + ("proj_add",))
     print("dryrun_multichip(4): %.3f s; the mesh iNTT, coset NTT, MSM and "
           "tiny prove equal their oracles; counters %s"
           % (time.perf_counter() - t, json.dumps(counts)), flush=True)
@@ -3446,7 +3734,7 @@ def run_phases(cleanup):
             secs = time.perf_counter() - t
             fleet_launches = launch_delta(
                 before, worker_launches(dd), "the %s fleet prove" % label,
-                PATH_KERNELS + ("proj_add",))
+                BASE_KERNELS + ("proj_add",))
             blob = proof_io.serialize_proof(proof)
             assert blob == golden, "%s fleet proof bytes" % label
             assert verify(vk, ckt.public_input(), proof,
@@ -3533,6 +3821,8 @@ def run_phases(cleanup):
     profile_prove(lambda: prove(random.Random(1), ckt, pk, be))
     profile_prove(lambda: prove(random.Random(1), ckt2, pk2, be2),
                   "v2 warm prove")
+    round3_profile(be, ckt, pk, "v1")
+    round3_profile(be2, ckt2, pk2, "v2")
     del be2, pk2, ckt2
     gc.collect()
     torch.cuda.empty_cache()
@@ -3561,9 +3851,10 @@ def run_phases(cleanup):
     done("analysis", t0)
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels
+    assert all(kernels[k]["v2"]["ms"] is not None for k in R3_KERNELS)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
-        "proj_add", "proj_add_mixed")]}))
+        "proj_add", "proj_add_mixed") + R3_KERNELS]}))
     # count: the cards this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

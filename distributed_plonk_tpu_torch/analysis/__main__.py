@@ -42,6 +42,7 @@ _ENTRY_MODULES = {
              "backend/curve_torch.py"),
     "curve/": ("backend/curve_torch.py", "backend/field_torch.py"),
     "eval/": ("backend/prover_torch.py", "backend/field_torch.py"),
+    "r3/": ("backend/prover_torch.py", "backend/field_torch.py"),
 }
 _GLOBAL_DEPS = ("constants.py", "backend/limbs.py", "analysis/bounds.py",
                 "analysis/values.py", "analysis/registry.py")

@@ -16,11 +16,15 @@ the kernel's output to the same contract on the same samples. Families:
   `bucket_sums_ref` / `msm_tail_ref` (bounds only, as the JAX package's
   bucket and finish entries are);
 - curve/: `proj_add_ref`, `proj_add_mixed_ref` (bounds only);
-- eval/: `poly_eval` / `poly_eval_many` (card: kernel 1).
+- eval/: `poly_eval` / `poly_eval_many` (card: kernel 1);
+- r3/: round 3's folds, `gate_fold_ref` (all 13 selectors, and a batch
+  that starts and ends inside a kind), `sigma_fold_ref`,
+  `quotient_combine_ref` (card: csrc/round3.cu).
 
 `card_entries()` adds one main-path shape per kernel for the card half
 alone: kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode, kernel
-3's msm_digits over a round-1 batch of 5 handles of width n + 2.
+3's msm_digits over a round-1 batch of 5 handles of width n + 2, and the
+three round-3 folds at 2^12 lanes (16 blocks).
 
 Shapes are representative, not production-sized: every interval rule is
 width-generic, and the loops of the plain versions repeat one step on the
@@ -32,6 +36,7 @@ it was cut.
 import numpy as np
 import torch
 
+from ..constants import R_MOD
 from . import bounds as B
 from . import values as V
 from .bounds import Bound, word_rows
@@ -644,6 +649,11 @@ def _curve_entries():
     ]
 
 
+# round 3's card entries: 16 blocks of 256 lanes (the folds are lane-wise;
+# chip_smoke.py phase 2 holds them at the main path's widths, 2^16 and
+# 2^21, against their plain versions)
+R3_CARD_LANES = 1 << 12
+
 # poly_eval's bounds entries run at chunk 16: the production chunk (256)
 # repeats one Horner step on the same intervals; 16 keeps the pad, the
 # lanes and the power combine at a tenth of the trace
@@ -678,10 +688,203 @@ def _eval_entries():
     return out
 
 
+_RINV = pow(1 << 256, -1, R_MOD)
+
+# round 3's folds: the scalars of every entry (canonical Fr values, the
+# role of the transcript's challenges and the coset constants k)
+R3_BETA, R3_GAMMA, R3_ALPHA, R3_ASDN = (
+    0x2a5f0e4b1c9d7a3e, 0x5bd1e995 << 160 | 0x1b873593, 7 << 200 | 11, 3)
+R3_K = (1, 7, 13, 17, 19)
+# (start, count) of the gate entries: every selector kind in one batch, and
+# a v2-width batch that starts inside Q_MUL and ends inside Q_HASH
+R3_GATE_BATCHES = ((0, 13), (4, 4))
+
+
+def _mm_int(a, b):
+    """The Montgomery product on raw (Montgomery-form) ints."""
+    return a * b * _RINV % R_MOD
+
+
+def _gate_term(q, s, w):
+    """Raw value of selector q's term sel * f(w) (Q_O's enters negated,
+    Q_C's is sel itself)."""
+    mm = _mm_int
+    if q == 11:
+        return s
+    if q < 4:
+        f = w[q]
+    elif q < 6:
+        f = mm(w[2 * (q - 4)], w[2 * (q - 4) + 1])
+    elif q < 10:
+        x = w[q - 6]
+        f = mm(mm(mm(x, x), mm(x, x)), x)
+    elif q == 10:
+        f = w[4]
+    else:
+        f = mm(mm(mm(w[0], w[1]), mm(w[2], w[3])), w[4])
+    return mm(s, f)
+
+
+def _lanes(words, m):
+    """(8, k, m) or (8, m) word tensor -> k lists of m raw ints."""
+    v = V.word_value(V.to_exact(words)).reshape(-1, m)
+    return [[int(x) for x in row] for row in v]
+
+
+def _r3_report(what, got, want, m):
+    row = [int(x) for x in V.word_value(got).reshape(-1)]
+    errs = []
+    if any(x >= R_MOD for x in row):
+        errs.append("%s: output not canonical (>= r)" % what)
+    if row != want:
+        k = next(i for i in range(m) if row[i] != want[i])
+        errs.append("%s: mismatch at lane %d (%d/%d lanes differ)" % (
+            what, k, sum(r != x for r, x in zip(row, want)), m))
+    return errs
+
+
+def _gate_value(start, count, m, samples=1):
+    """value(out) == gate + sum of the batch's selector terms mod r, on
+    raw Montgomery values (each product carries one R^-1)."""
+    from ..backend.field_torch import FR
+
+    def sampler(rng):
+        return (_fe_tensor(rng, FR, m, (m,)),
+                _fe_tensor(rng, FR, count * m, (count, m)),
+                _fe_tensor(rng, FR, 5 * m, (5, m)))
+
+    def contract(args, outs):
+        g = _lanes(args[0], m)[0]
+        sel, w = _lanes(args[1], m), _lanes(args[2], m)
+        want = []
+        for i in range(m):
+            acc = g[i]
+            wi = [w[j][i] for j in range(5)]
+            for j in range(count):
+                q = start + j
+                t = _gate_term(q, sel[j][i], wi)
+                acc = (acc - t if q == 10 else acc + t) % R_MOD
+            want.append(acc)
+        return _r3_report("gate_fold", outs[0], want, m)
+    return ValueObligation(sampler, contract, samples=samples)
+
+
+def _mont_int(x):
+    return x % R_MOD * (1 << 256) % R_MOD
+
+
+def _sigma_value(start, count, m, samples=1):
+    """value(out) == acc2 * prod_j (w_j + gamma + beta * sigma_j) mod r."""
+    from ..backend.field_torch import FR
+    beta, gamma = _mont_int(R3_BETA), _mont_int(R3_GAMMA)
+
+    def sampler(rng):
+        return (_fe_tensor(rng, FR, m, (m,)),
+                _fe_tensor(rng, FR, count * m, (count, m)),
+                _fe_tensor(rng, FR, 5 * m, (5, m)))
+
+    def contract(args, outs):
+        a = _lanes(args[0], m)[0]
+        sig, w = _lanes(args[1], m), _lanes(args[2], m)
+        want = []
+        for i in range(m):
+            acc = a[i]
+            for j in range(count):
+                f = (w[start + j][i] + gamma
+                     + _mm_int(sig[j][i], beta)) % R_MOD
+                acc = _mm_int(acc, f)
+            want.append(acc)
+        return _r3_report("sigma_fold", outs[0], want, m)
+    return ValueObligation(sampler, contract, samples=samples)
+
+
+def _combine_value(m, samples=1):
+    """value(out) == zh_inv * (gate + alpha * (acc1 - acc2)) + l1 mod r,
+    acc1 = z * prod_j (w_j + gamma + k_j ep beta), l1 = alpha^2/n *
+    (z - 1) * shifted_inv, on raw Montgomery values."""
+    from ..backend.field_torch import FR
+    mm = _mm_int
+    beta, gamma, alpha, asdn = (_mont_int(x) for x in (
+        R3_BETA, R3_GAMMA, R3_ALPHA, R3_ASDN))
+    ks = [_mont_int(k) for k in R3_K]
+    one = _mont_int(1)
+
+    def sampler(rng):
+        return ((_fe_tensor(rng, FR, 5 * m, (5, m)),)
+                + tuple(_fe_tensor(rng, FR, m, (m,)) for _ in range(6)))
+
+    def contract(args, outs):
+        w = _lanes(args[0], m)
+        z, g, a2, ep, zh, sh = (_lanes(a, m)[0] for a in args[1:])
+        want = []
+        for i in range(m):
+            acc1 = z[i]
+            for j in range(5):
+                f = (w[j][i] + gamma + mm(mm(ks[j], ep[i]), beta)) % R_MOD
+                acc1 = mm(acc1, f)
+            perm = mm(alpha, (acc1 - a2[i]) % R_MOD)
+            l1 = mm(mm(asdn, (z[i] - one) % R_MOD), sh[i])
+            want.append((mm(zh[i], (g[i] + perm) % R_MOD) + l1) % R_MOD)
+        return _r3_report("quotient_combine", outs[0], want, m)
+    return ValueObligation(sampler, contract, samples=samples)
+
+
+def _r3_fns(kind, start=0, count=0):
+    """(plain, card) of one fold at the registry's scalars."""
+    from ..backend import prover_torch as PT
+    if kind == "gate":
+        return (lambda g, p, w: PT.gate_fold_ref(g, p, w, start),
+                lambda g, p, w: PT.gate_fold_cuda(g, p, w, start))
+    if kind == "sigma":
+        return (lambda a, p, w: PT.sigma_fold_ref(a, p, w, start, R3_BETA,
+                                                  R3_GAMMA),
+                lambda a, p, w: PT.sigma_fold_cuda(a, p, w, start, R3_BETA,
+                                                   R3_GAMMA))
+
+    def combine(fn):
+        def run(w, z, g, a2, ep, zh, sh):
+            tabs = {"ep": ep, "zh_inv": zh, "shifted_inv": sh}
+            return fn(w, z, g, a2, tabs, R3_K, R3_BETA, R3_GAMMA, R3_ALPHA,
+                      R3_ASDN)
+        return run
+    return (combine(PT.quotient_combine_ref),
+            combine(PT.quotient_combine_cuda))
+
+
+# the host entries' lanes: every step is lane-wise, so the width is free
+R3_LANES = 8
+
+
+def _r3_entries():
+    """Round 3's folds (prover_torch.gate_fold_ref, sigma_fold_ref,
+    quotient_combine_ref; on the card csrc/round3.cu's r3_gate_fold,
+    r3_sigma_fold, r3_combine) at 8 lanes."""
+    m = R3_LANES
+    plane = word_rows(8, m)
+    out = []
+    for start, count in R3_GATE_BATCHES:
+        plain, card = _r3_fns("gate", start, count)
+        out.append(Entry(
+            "r3/gate_fold_s%d_b%d" % (start, count), plain,
+            (plane, word_rows(8, count, m), word_rows(8, 5, m)), [I32],
+            value=_gate_value(start, count, m), kernel=card,
+            launches="r3_gate_fold"))
+    plain, card = _r3_fns("sigma", 0, 5)
+    out.append(Entry(
+        "r3/sigma_fold_s0_b5", plain,
+        (plane, word_rows(8, 5, m), word_rows(8, 5, m)), [I32],
+        value=_sigma_value(0, 5, m), kernel=card, launches="r3_sigma_fold"))
+    plain, card = _r3_fns("combine")
+    out.append(Entry(
+        "r3/combine", plain, (word_rows(8, 5, m),) + (plane,) * 6, [I32],
+        value=_combine_value(m), kernel=card, launches="r3_combine"))
+    return out
+
+
 def build_registry():
     """All production entries (list of Entry)."""
     return (_field_entries() + _ntt_entries() + _msm_entries()
-            + _curve_entries() + _eval_entries())
+            + _curve_entries() + _eval_entries() + _r3_entries())
 
 
 def card_entries():
@@ -715,6 +918,17 @@ def card_entries():
         value=_msm_digits_value(5, n + 3, 7, True, True, n + 2),
         kernel=lambda v, inf: M.msm_digits_cuda(v, inf, 7, True, True),
         launches="msm_digits", card_only=True))
+    # round 3's folds over 16 blocks of lanes: all 13 selectors in one
+    # launch (v1's batch), the 5 sigmas, the combine
+    lanes = R3_CARD_LANES
+    for kind, start, count, value, launches in (
+            ("gate", 0, 13, _gate_value(0, 13, lanes), "r3_gate_fold"),
+            ("sigma", 0, 5, _sigma_value(0, 5, lanes), "r3_sigma_fold"),
+            ("combine", 0, 0, _combine_value(lanes), "r3_combine")):
+        out.append(Entry(
+            "r3/%s_m%d_card" % (kind, lanes), None, (), value=value,
+            kernel=_r3_fns(kind, start, count)[1], launches=launches,
+            card_only=True))
     return out
 
 

@@ -53,6 +53,7 @@ SOURCES = {
     "ntt": "ntt.cu",
     "msm": "msm_bucket.cu",
     "curve": "curve_add.cu",
+    "round3": "round3.cu",
 }
 HEADERS = ("field.cuh", "curve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,6 +75,11 @@ SIGNATURES = {
                                _V),
               "dpt_msm_tail": (_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
                                _V)},
+    "round3": {"dpt_r3_gate_fold": (_V, _L, _V, _L, _V, _L, _L, _V, _L, _L,
+                                    _I, _I, _L, _V),
+               "dpt_r3_sigma_fold": (_V, _L, _V, _L, _V, _L, _L, _V, _L,
+                                     _L, _I, _I, _L, _V, _V),
+               "dpt_r3_combine": (_V, _V, _L, _L, _V, _V, _L, _V, _V)},
 }
 
 _lock = threading.Lock()
@@ -95,12 +101,13 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 # where it launches its kernel (the NTT counts every pass it launches;
 # proj_add counts the full add and proj_add_mixed the mixed add of the same
 # kernel; bucket_sums counts one per call, which launches its chunk and
-# tree kernels). CALLS counts the entry calls of the NTT, which launches
+# tree kernels; each round-3 fold counts its one launch). CALLS counts the entry calls of the NTT, which launches
 # one kernel per pass. The service's pool threads launch concurrently, so
 # every increment goes through count() under a lock (a bare `+= 1` on a
 # dict entry can lose an update when two threads interleave).
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
-            "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0}
+            "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0,
+            "r3_gate_fold": 0, "r3_sigma_fold": 0, "r3_combine": 0}
 CALLS = {"ntt": 0}
 _count_lock = threading.Lock()
 

@@ -3,19 +3,25 @@ backend/prover_jax.py.
 
 Plain torch on top of the field module (every product is a
 `field_torch.mont_mul`, i.e. kernel 1 on the card): the JAX package
-computes all of this in XLA, outside any Pallas kernel. Handles are
-(8, n) Montgomery words; scalars broadcast as (8, 1). Sequential
-recurrences keep prover_jax's log-depth shapes (Hillis-Steele product and
-sum ladders), except that the one field inversion of a batch inverse runs
-on the host (a single element crosses, as in curve_jax.batch_to_affine).
+computes all of this in XLA, outside any Pallas kernel. Round 3's three
+folds (`gate_fold`, `sigma_fold`, `quotient_combine`) are one hand-written
+kernel each on the card (csrc/round3.cu), their plain versions beside
+them. Handles are (8, n) Montgomery words; scalars broadcast as (8, 1).
+Sequential recurrences keep prover_jax's log-depth shapes (Hillis-Steele
+product and sum ladders), except that the one field inversion of a batch
+inverse runs on the host (a single element crosses, as in
+curve_jax.batch_to_affine).
 """
+
+import ctypes
 
 import torch
 
-from ..constants import R_MOD, FR_MONT_R, FR_WORDS
+from ..constants import R_MOD, FR_MONT_R, FR_WORDS, WORD_MASK
+from . import _build
 from . import field_torch as F
 from .field_torch import FR
-from .limbs import lift_scalar, to_numpy, words_to_ints
+from .limbs import lift, lift_scalar, to_numpy, words_to_ints
 
 _R_INV = pow(FR_MONT_R, -1, R_MOD)
 
@@ -222,6 +228,191 @@ def quotient_combine_slice(wires, z, gate, acc2, tabs, k, beta, gamma,
     l1 = _mm(_mm(alpha_sq_div_n, _sub(zs, _one_like(zs))),
              cut(tabs["shifted_inv"]))
     return _add(_mm(cut(tabs["zh_inv"]), _add(cut(gate), perm)), l1)
+
+
+# --- round 3, fused: one launch per fold ------------------------------------
+# The JAX package's DPT_R3_FUSE folds (jax_backend._gate_epilogue,
+# _sigma_epilogue, _combine_prologue). Each takes a batch of coset planes
+# (8, B, m) and the (8, 5, m) wire planes, read through their strides, and
+# host ints for the scalars (canonical Fr values: the transcript's
+# challenges and the coset constants k). CUDA tensors launch
+# csrc/round3.cu, one kernel per call and no host synchronisation (the
+# scalars ride the launch's parameters); CPU tensors run the plain
+# versions, which are the step functions above, value for value. Each
+# returns a fresh contiguous (8, m) tensor.
+
+def gate_fold_ref(gate, planes, wires, start):
+    """gate + the terms of selectors start .. start + B - 1 (GATE_STEPS
+    order), whose coset planes are planes[:, 0 .. B - 1]."""
+    for j in range(planes.shape[1]):
+        step, operands = GATE_STEPS[start + j]
+        gate = step(gate, planes[:, j], *[wires[:, x] for x in operands])
+    return gate
+
+
+def sigma_fold_ref(acc2, planes, wires, start, beta, gamma):
+    """acc2 * prod_j (w_{start+j} + gamma + beta * planes[:, j])."""
+    beta_c = lift_scalar(beta, acc2.device)
+    gamma_c = lift_scalar(gamma, acc2.device)
+    for j in range(planes.shape[1]):
+        acc2 = sigma_step(acc2, planes[:, j], wires[:, start + j], beta_c,
+                          gamma_c)
+    return acc2
+
+
+def quotient_combine_ref(wires, z, gate, acc2, tabs, k, beta, gamma, alpha,
+                         alpha_sq_div_n):
+    """quotient_combine_slice over the whole quotient domain [0, m)."""
+    dev = z.device
+    kc = lift(list(k), dev).reshape(FR_WORDS, len(k), 1)
+    sc = [lift_scalar(x, dev) for x in (beta, gamma, alpha, alpha_sq_div_n)]
+    return quotient_combine_slice(
+        [wires[:, j] for j in range(wires.shape[1])], z, gate, acc2, tabs,
+        kc, *sc, 0, z.shape[1])
+
+
+def _mont_words(values):
+    """Canonical Fr ints -> the words of their Montgomery forms, a ctypes
+    uint32 array for a launch's parameters."""
+    words = [(x % R_MOD * FR_MONT_R % R_MOD) >> (32 * i) & WORD_MASK
+             for x in values for i in range(FR_WORDS)]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def _r3_operand(t, what, dims, m, dev):
+    """Check a round-3 operand: int32 Fr words of `dims` axes, m lanes
+    with unit stride, on `dev`; returns its word stride."""
+    F._check_words(FR, t, what, contiguous=False)
+    if t.dim() != dims or t.shape[-1] != m or t.stride(-1) != 1:
+        raise ValueError("%s: expected %d axes of m = %d unit-stride lanes,"
+                         " got shape %s strides %s" % (
+                             what, dims, m, tuple(t.shape), t.stride()))
+    if t.device != dev:
+        raise ValueError("%s: on %s, the fold runs on %s" % (what, t.device,
+                                                              dev))
+    return t.stride(0)
+
+
+def _r3_launch(entry, name, dev, args, stream_of):
+    """Launch round3.cu's `entry` on dev's current stream; count `name`."""
+    fn = getattr(_build.load()["round3"], entry)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, F._stream(stream_of))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, F._stream(stream_of))
+    _build.check(rc, name)
+    _build.count(name)
+
+
+def _r3_batch(planes, wires, start, limit, what):
+    """(device, m, B) of a fold's batch, checked."""
+    dev = planes.device
+    if dev.type != "cuda":
+        raise ValueError("%s: operands must lie on one CUDA device" % what)
+    m, B = planes.shape[-1], planes.shape[1]
+    if wires.dim() != 3 or wires.shape[1] != 5:
+        raise ValueError("%s: expected the (8, 5, m) wire planes, got %s"
+                         % (what, tuple(wires.shape)))
+    if start < 0 or start + B > limit:
+        raise ValueError("%s: planes %d .. %d outside the %d of the table"
+                         % (what, start, start + B - 1, limit))
+    if m >= 1 << 31:
+        raise ValueError("%s: too many lanes %d" % (what, m))
+    return dev, m, B
+
+
+def gate_fold_cuda(gate, planes, wires, start):
+    """r3_gate_fold: one launch over the lanes."""
+    dev, m, B = _r3_batch(planes, wires, start, len(GATE_STEPS), "gate_fold")
+    pw = _r3_operand(planes, "gate_fold planes", 3, m, dev)
+    ww = _r3_operand(wires, "gate_fold wires", 3, m, dev)
+    gw = _r3_operand(gate, "gate_fold gate", 2, m, dev)
+    out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
+    _r3_launch("dpt_r3_gate_fold", "r3_gate_fold", dev, (
+        out.data_ptr(), out.stride(0), gate.data_ptr(), gw,
+        planes.data_ptr(), pw, planes.stride(1), wires.data_ptr(), ww,
+        wires.stride(1), start, B, m), gate)
+    return out
+
+
+def sigma_fold_cuda(acc2, planes, wires, start, beta, gamma):
+    """r3_sigma_fold: one launch over the lanes."""
+    dev, m, B = _r3_batch(planes, wires, start, wires.shape[1], "sigma_fold")
+    pw = _r3_operand(planes, "sigma_fold planes", 3, m, dev)
+    ww = _r3_operand(wires, "sigma_fold wires", 3, m, dev)
+    aw = _r3_operand(acc2, "sigma_fold acc2", 2, m, dev)
+    out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
+    _r3_launch("dpt_r3_sigma_fold", "r3_sigma_fold", dev, (
+        out.data_ptr(), out.stride(0), acc2.data_ptr(), aw,
+        planes.data_ptr(), pw, planes.stride(1), wires.data_ptr(), ww,
+        wires.stride(1), start, B, m, _mont_words((beta, gamma))), acc2)
+    return out
+
+
+def quotient_combine_cuda(wires, z, gate, acc2, tabs, k, beta, gamma, alpha,
+                          alpha_sq_div_n):
+    """r3_combine: one launch over the lanes -> a fresh contiguous
+    (8, m)."""
+    dev, m = z.device, z.shape[-1]
+    if dev.type != "cuda":
+        raise ValueError("quotient_combine: operands must lie on one CUDA "
+                         "device")
+    if wires.shape[1] != len(k) or len(k) != 5:
+        raise ValueError("quotient_combine: 5 wire planes and 5 coset "
+                         "constants, got %d and %d" % (wires.shape[1],
+                                                       len(k)))
+    if m >= 1 << 31:
+        raise ValueError("quotient_combine: too many lanes %d" % m)
+    ww = _r3_operand(wires, "quotient_combine wires", 3, m, dev)
+    ins = (z, gate, acc2, tabs["ep"], tabs["zh_inv"], tabs["shifted_inv"])
+    words = [_r3_operand(t, "quotient_combine input %d" % i, 2, m, dev)
+             for i, t in enumerate(ins)]
+    out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
+    scal = _mont_words([gamma, alpha, alpha_sq_div_n, 1]
+                       + [kj * beta for kj in k])
+    _r3_launch("dpt_r3_combine", "r3_combine", dev, (
+        out.data_ptr(), wires.data_ptr(), ww, wires.stride(1),
+        (ctypes.c_void_p * 6)(*[t.data_ptr() for t in ins]),
+        (ctypes.c_longlong * 6)(*words), m, scal), z)
+    return out
+
+
+def _on_cpu(*ts):
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def gate_fold(gate, planes, wires, start):
+    """The gate accumulator (8, m) after selectors start .. start + B - 1
+    (circuit.py order: Q_LC x4, Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC; a
+    batch may start or end inside a kind), their coset planes (8, B, m)
+    folded over the (8, 5, m) wire planes: JAX _gate_epilogue."""
+    if _on_cpu(gate, planes, wires):
+        return gate_fold_ref(gate, planes, wires, start)
+    return gate_fold_cuda(gate, planes, wires, start)
+
+
+def sigma_fold(acc2, planes, wires, start, beta, gamma):
+    """acc2 (8, m) times (w_j + gamma + beta * sigma_j) for the sigma planes
+    j = start .. start + B - 1 of the batch (8, B, m): JAX
+    _sigma_epilogue."""
+    if _on_cpu(acc2, planes, wires):
+        return sigma_fold_ref(acc2, planes, wires, start, beta, gamma)
+    return sigma_fold_cuda(acc2, planes, wires, start, beta, gamma)
+
+
+def quotient_combine(wires, z, gate, acc2, tabs, k, beta, gamma, alpha,
+                     alpha_sq_div_n):
+    """The quotient's coset evaluations (8, m) over the whole quotient
+    domain: acc1 from the wires and tabs["ep"], then
+    zh_inv * (gate + alpha * (acc1 - acc2)) + l1 (acc2 holds the z_next
+    factor): JAX _combine_prologue, equal to quotient_combine_slice over
+    [0, m)."""
+    if _on_cpu(wires, z, gate, acc2):
+        return quotient_combine_ref(wires, z, gate, acc2, tabs, k, beta,
+                                    gamma, alpha, alpha_sq_div_n)
+    return quotient_combine_cuda(wires, z, gate, acc2, tabs, k, beta, gamma,
+                                 alpha, alpha_sq_div_n)
 
 
 # --- polynomial utilities ---------------------------------------------------

@@ -4,14 +4,16 @@ CUDA card (the port of backend/jax_backend.py).
 Poly handles are (8, L) int32 Montgomery Fr word tensors that stay on the
 device across all five rounds: NTTs (kernel 2), commitments (digit
 extraction on device, buckets in kernel 3, the tail in kernel 4), and the
-round math (prover_torch, products in kernel 1). Host transfers during a
+round math (prover_torch: products in kernel 1, round 3's folds one
+kernel each, csrc/round3.cu). Host transfers during a
 prove are the witness upload, commitment results and transcript scalars.
 
 Beside the synchronous method set, the prover picks up optional hooks
-with getattr: the streamed round 3 (`quotient_streamed`,
-`release_circuit_tables`) and the async commitments and evaluations
-(`commit_many_async`, `eval_many_async`). Set a hook to None on an
-instance to run the prover's path without it. The pipelined prover
+with getattr: the fused round 3 (`quotient_poly_streamed`, the default),
+the streamed round 3 (`quotient_streamed`, `release_circuit_tables`) and
+the async commitments and evaluations (`commit_many_async`,
+`eval_many_async`). Set a hook to None on an instance to run the
+prover's path without it. The pipelined prover
 launches from a worker thread, so the caches are filled under a lock;
 every launch goes to the calling thread's current CUDA stream (the
 default stream on a fresh thread), so device work runs in enqueue order.
@@ -253,11 +255,14 @@ class TorchBackend:
     # accumulator and each sigma plane into acc2 right after its coset FFT
     # and is dropped, so about 10 planes stay resident (5 wires, z, gate,
     # acc2 and one launch's batch) instead of 25; the final combine runs
-    # in lane slices. These are the JAX package's unfused steps
-    # (jax_backend.py:519-544), value for value; no bit-reversal is
-    # deferred, since kernel 2 writes natural order, and no packing is
-    # needed, since (8, m) int32 words already are the JAX package's
-    # packed layout. The prover runs the coset iNTT after.
+    # in lane slices. `quotient_streamed` is the JAX package's unfused
+    # steps (jax_backend.py:519-544), value for value, and the prover runs
+    # the coset iNTT after; `quotient_poly_streamed`, the default, is its
+    # fused path (DPT_R3_FUSE): one kernel per fold and the combine over
+    # the whole domain, then the iNTT. No bit-reversal is deferred
+    # (DPT_R3_BITREV), since kernel 2 writes natural order, and no packing
+    # is needed, since (8, m) int32 words already are the JAX package's
+    # packed layout.
 
     def _r3_accumulate(self, n, m, quot_domain, beta, gamma, sel_h, sigma_h,
                        wire_polys, perm_poly, pi_coeffs):
@@ -268,7 +273,7 @@ class TorchBackend:
         w, z, gate = base[:5], base[5], base[6]  # gate starts as the pi plane
         acc2 = torch.roll(z, -(m // n), dims=1)    # z_next
         del base
-        width = max(1, min(self.NTT_BATCH, self.STREAM_ELEMS // m))
+        width = self._stream_width(m)
         beta_c = limbs.lift_scalar(beta, self.device)
         gamma_c = limbs.lift_scalar(gamma, self.device)
         idx = 0
@@ -286,6 +291,41 @@ class TorchBackend:
                                      gamma_c)
                 idx += 1
         return w, z, gate, acc2
+
+    def _stream_width(self, m):
+        """Planes per coset-FFT launch of the streamed round 3."""
+        return max(1, min(self.NTT_BATCH, self.STREAM_ELEMS // m))
+
+    def quotient_poly_streamed(self, n, m, quot_domain, k, beta, gamma,
+                               alpha, alpha_sq_div_n, sel_h, sigma_h,
+                               wire_polys, perm_poly, pi_coeffs):
+        """Round 3 from coefficient handles to the quotient polynomial
+        (8, m): the fused round 3 (JAX quotient_poly_streamed under
+        DPT_R3_FUSE). The base coset FFTs (wires, z, pi) in one kernel-2
+        call; each selector batch's coset FFT folded into the gate
+        accumulator by one r3_gate_fold launch and each sigma batch's into
+        acc2 by one r3_sigma_fold, with the streamed path's batch widths;
+        then one r3_combine over the whole quotient domain and the coset
+        iNTT. On the card no int64 temporary is made: each fold's only
+        allocation is its (8, m) result."""
+        tabs = self._domain_tables(m, n, quot_domain.group_gen)
+        polys = list(wire_polys) + [perm_poly, pi_coeffs]
+        base = next(self._ntt_batches(quot_domain, polys, False, True,
+                                      len(polys)))
+        w, z, gate = base[:, :5], base[:, 5], base[:, 6]
+        acc2 = torch.roll(z, -(m // n), dims=1)      # z_next
+        width = self._stream_width(m)
+        for i, res in enumerate(self._ntt_batches(
+                quot_domain, list(sel_h), False, True, width)):
+            gate = PT.gate_fold(gate, res, w, i * width)
+        for i, res in enumerate(self._ntt_batches(
+                quot_domain, list(sigma_h), False, True, width)):
+            acc2 = PT.sigma_fold(acc2, res, w, i * width, beta, gamma)
+        del res
+        evals = PT.quotient_combine(w, z, gate, acc2, tabs, k, beta, gamma,
+                                    alpha, alpha_sq_div_n)
+        del base, w, z, gate, acc2
+        return self.coset_ifft_h(quot_domain, evals)
 
     def quotient_streamed(self, n, m, quot_domain, k, beta, gamma, alpha,
                           alpha_sq_div_n, sel_h, sigma_h, wire_polys,

@@ -24,8 +24,10 @@ as the JAX backend does. Counters say which path took every call:
 by domain size, `mesh_msm_calls` committed handles; a mesh that fell back
 everywhere would still prove the same bytes, so a run reads them.
 
-The mesh shards; it does not stream: `quotient_streamed` is None, so
-round 3 runs one-shot (25 coset planes, each NTT on the mesh).
+The mesh shards; it does not stream: `quotient_poly_streamed` and
+`quotient_streamed` are None (as the JAX MeshBackend sets them), so round
+3 runs one-shot (25 coset planes, each NTT on the mesh) and no fold
+slices a sharded plane.
 
 On a multi-process mesh (parallel/mesh.init_multihost) every process
 constructs a MeshBackend and runs the same preprocess and prove with the
@@ -54,6 +56,7 @@ class MeshBackend(TorchBackend):
     handles are (8, L) Montgomery word tensors on the mesh's lead device."""
 
     name = "mesh"
+    quotient_poly_streamed = None
     quotient_streamed = None
 
     def __init__(self, mesh):

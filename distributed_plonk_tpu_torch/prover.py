@@ -201,6 +201,11 @@ class _ProveCtx:
         # the single-card scale ceiling); without the hook the one-shot
         # path runs. Both compute identical values.
         self.stream = getattr(backend, "quotient_streamed", None)
+        # quotient_poly_streamed: the same streaming accumulation with one
+        # kernel per fold, the combine over the whole quotient domain and
+        # the coset iNTT inside: round 3 straight to the quotient
+        # polynomial (the JAX package's DPT_R3_FUSE); taken first
+        self.stream_poly = getattr(backend, "quotient_poly_streamed", None)
         self.commit_async = getattr(backend, "commit_many_async", None)
         self.eval_async = getattr(backend, "eval_many_async", None)
         # the cards this backend launches on (a mesh's shards, or its one
@@ -386,7 +391,17 @@ def _work_r3(cx, mb):
     n_coset_polys = len(cx.sel_h) + 2 * nw + 2
     work = {"flops": ntt_flops(m, n_coset_polys),
             "data_bytes": n_coset_polys * m * 32}
-    if cx.stream is not None:
+    quot_evals = None
+    if cx.stream_poly is not None:
+        # the coset iNTT runs inside: its NTT counts in the work model
+        with _work_span(cx, mb, "quotient_stream_fused", m=m,
+                        polys=n_coset_polys,
+                        flops=ntt_flops(m, n_coset_polys + 1),
+                        data_bytes=n_coset_polys * m * 32):
+            quotient_poly = cx.stream_poly(*head, cx.sel_h, cx.sigma_h,
+                                           mb.wire_polys,
+                                           mb.permutation_poly, pi_coeffs)
+    elif cx.stream is not None:
         with _work_span(cx, mb, "quotient_stream", m=m, polys=n_coset_polys,
                         **work):
             quot_evals = cx.stream(*head, cx.sel_h, cx.sigma_h,
@@ -407,9 +422,10 @@ def _work_r3(cx, mb):
                 batch[ns + nw:ns + 2 * nw], batch[ns + 2 * nw],
                 batch[ns + 2 * nw + 1])
         del batch
-    with _work_span(cx, mb, "coset_ifft_quot", flops=ntt_flops(m),
-                    data_bytes=m * 32):
-        quotient_poly = be.coset_ifft_h(cx.quot_domain, quot_evals)
+    if quot_evals is not None:
+        with _work_span(cx, mb, "coset_ifft_quot", flops=ntt_flops(m),
+                        data_bytes=m * 32):
+            quotient_poly = be.coset_ifft_h(cx.quot_domain, quot_evals)
 
     expected_degree = nw * (n + 1) + 2
     assert be.degree_is(quotient_poly, expected_degree), expected_degree

@@ -216,12 +216,14 @@ def test_registry_subset_clean(subset):
 def test_registry_covers_every_family_and_kernel():
     names = [e.name for e in R.build_registry()]
     assert len(names) == len(set(names))
-    for fam in ("field/", "ntt/", "msm/", "curve/", "eval/"):
+    for fam in ("field/", "ntt/", "msm/", "curve/", "eval/", "r3/"):
         assert any(n.startswith(fam) for n in names)
     card = [e for e in R.build_registry() if e.kernel is not None]
-    assert {e.launches for e in card} == {"mont_mul", "ntt", "msm_digits"}
+    kernels = {"mont_mul", "ntt", "msm_digits", "r3_gate_fold",
+               "r3_sigma_fold", "r3_combine"}
+    assert {e.launches for e in card} == kernels
     mains = R.card_entries()
-    assert {e.launches for e in mains} == {"mont_mul", "ntt", "msm_digits"}
+    assert {e.launches for e in mains} == kernels
     assert all(e.card_only and e.kernel is not None for e in mains)
     # a card value pass needs a card: the host pass skips these
     assert all(e.check_values(device="cpu") is None for e in mains)

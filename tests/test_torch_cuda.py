@@ -1,6 +1,7 @@
-"""Each of the port's CUDA kernels against its plain torch version on the
-card, exactly (tolerance 0: every value is a canonical integer, and every
-addition happens in a fixed order).
+"""Each of the port's CUDA kernels (csrc/*.cu, round 3's folds included)
+against its plain torch version on the card, exactly (tolerance 0: every
+value is a canonical integer, and every addition happens in a fixed
+order).
 
 Marked `cuda`; every test skips without a card. This file imports neither
 jax nor the JAX package, so it also runs where only the port's
@@ -217,6 +218,96 @@ def test_streamed_round3_matches_one_shot_at_2p16():
     be.QUOT_SLICE = 1 << 14
     be.STREAM_ELEMS = 3 << 16
     assert torch.equal(be.quotient_streamed(*head, wires, z, pi), evals)
+
+
+def _fr_planes(shape, seed, dev):
+    """Canonical Fr words (8, *shape) on dev with the corners 0, 1, r - 1
+    in the first lanes."""
+    count = int(np.prod(shape))
+    return TL.to_tensor(TL.ints_to_words(_values(R_MOD, count, seed), 8),
+                        dev).reshape((8,) + tuple(shape))
+
+
+@pytest.mark.parametrize("start,count", [(0, 13), (0, 4), (4, 4), (8, 4),
+                                         (12, 1), (10, 3)])
+def test_r3_gate_fold_matches_plain(start, count):
+    """r3_gate_fold at every v2 batch, v1's batch of 13 and a batch over
+    Q_O, Q_C and Q_ECC, on 4,099 lanes (a ragged last block), from a
+    strided view of the planes."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    m = 4099
+    sel = _fr_planes((count + 1, m), 31 + start, dev)[:, 1:]
+    wires = _fr_planes((7, m), 32, dev)[:, :5]
+    gate = _fr_planes((m,), 33, dev)
+    want = PT.gate_fold_ref(gate, sel, wires, start)
+    assert torch.equal(PT.gate_fold_cuda(gate, sel, wires, start), want)
+    assert torch.equal(PT.gate_fold(gate, sel, wires, start), want)
+
+
+@pytest.mark.parametrize("start,count", [(0, 5), (0, 4), (4, 1)])
+def test_r3_sigma_fold_matches_plain(start, count):
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    m = 4099
+    sig = _fr_planes((count, m), 41, dev)
+    wires = _fr_planes((5, m), 42, dev)
+    acc2 = _fr_planes((m,), 43, dev)
+    beta, gamma = _values(R_MOD, 5, 44)[3:]
+    want = PT.sigma_fold_ref(acc2, sig, wires, start, beta, gamma)
+    assert torch.equal(PT.sigma_fold_cuda(acc2, sig, wires, start, beta,
+                                          gamma), want)
+
+
+def test_r3_combine_matches_plain():
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    m = 4099
+    wires = _fr_planes((5, m), 51, dev)
+    z, gate, acc2, ep, zh, sh = _fr_planes((6, m), 52, dev).unbind(1)
+    tabs = {"ep": ep, "zh_inv": zh, "shifted_inv": sh}
+    vals = _values(R_MOD, 12, 53)[3:]
+    args = (wires, z, gate, acc2, tabs, vals[:5]) + tuple(vals[5:9])
+    assert torch.equal(PT.quotient_combine_cuda(*args),
+                       PT.quotient_combine_ref(*args))
+
+
+def test_fused_round3_matches_streamed_at_2p16():
+    """quotient_poly_streamed (one kernel per fold) equals the streamed
+    round 3 followed by the coset iNTT at m = 2^16, in batches of 3 planes
+    and of the default width."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.circuit import coset_representatives
+    from distributed_plonk_tpu_torch.poly import Domain
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    n = 1 << 13
+    dom = Domain(6 * (n + 1) + 1)
+    be = TorchBackend(dev)
+    vals = iter(_values(R_MOD, 25 * (n + 3), 17))
+
+    def poly(size):
+        return be.lift([next(vals) for _ in range(size)])
+
+    sel = [poly(n) for _ in range(13)]
+    sig = [poly(n) for _ in range(5)]
+    wires = [poly(n + 2) for _ in range(5)]
+    z, pi = poly(n + 3), poly(n)
+    beta, gamma, alpha, asdn = (next(vals) for _ in range(4))
+    head = (n, dom.size, dom, coset_representatives(5), beta, gamma, alpha,
+            asdn, sel, sig)
+    want = be.coset_ifft_h(dom, be.quotient_streamed(*head, wires, z, pi))
+    for width in (None, 3):
+        if width is not None:
+            be.STREAM_ELEMS = width << 16
+        _build.reset_launches()
+        got = be.quotient_poly_streamed(*head, wires, z, pi)
+        assert torch.equal(got, want), width
+        folds = -(-13 // (width or 32)), -(-5 // (width or 32))
+        assert (_build.LAUNCHES["r3_gate_fold"],
+                _build.LAUNCHES["r3_sigma_fold"],
+                _build.LAUNCHES["r3_combine"]) == folds + (1,)
 
 
 @pytest.mark.parametrize("n", [1 << 16, 1 << 21])

@@ -77,30 +77,45 @@ def jax_stages(proven):
     return set(_work(jtr.events))
 
 
-@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("streamed", [False, True, "fused"])
 def test_prove_records_the_jax_stages_with_the_port_model(jax_stages,
                                                           streamed):
+    """streamed False: the one-shot round 3 (both hooks None); True: the
+    streamed round 3 (quotient_poly_streamed None); "fused": the default,
+    held to JAX's quotient_stream_fused work (the coset iNTT inside)."""
     ckt, be, pk, _ = port_keys()
     tr = Tracer()
-    if not streamed:
-        be.quotient_streamed = None    # the one-shot round 3
+    hooks = {False: ("quotient_poly_streamed", "quotient_streamed"),
+             True: ("quotient_poly_streamed",), "fused": ()}[streamed]
+    for hook in hooks:
+        setattr(be, hook, None)
     try:
         prove(random.Random(1), ckt, pk, be, tracer=tr)
     finally:
-        be.__dict__.pop("quotient_streamed", None)
+        for hook in hooks:
+            be.__dict__.pop(hook, None)
     got = _work(tr.events)
-    if streamed:
-        # the port's streamed round 3 is the JAX package's quotient_stream
-        jax_stages = (jax_stages - {"coset_ffts"}) | {"quotient_stream"}
-    assert set(got) == jax_stages
     n, m, nw = ckt.n, 8 * ckt.n, 5
     polys = 13 + 2 * nw + 2          # selectors, sigmas, wires, z, pi
+    if streamed is True:
+        # the port's streamed round 3 is the JAX package's quotient_stream
+        jax_stages = (jax_stages - {"coset_ffts"}) | {"quotient_stream"}
+    elif streamed == "fused":
+        # and its fused one JAX's quotient_stream_fused (prover.py:332-338)
+        jax_stages = ((jax_stages - {"coset_ffts", "coset_ifft_quot"})
+                      | {"quotient_stream_fused"})
+    assert set(got) == jax_stages
+    r3 = {False: {"coset_ffts": (T.ntt_flops(m, polys), polys * m * 32)},
+          True: {"quotient_stream": (T.ntt_flops(m, polys),
+                                     polys * m * 32)},
+          "fused": {"quotient_stream_fused": (T.ntt_flops(m, polys + 1),
+                                              polys * m * 32)}}[streamed]
+    if streamed != "fused":
+        r3["coset_ifft_quot"] = (T.ntt_flops(m), m * 32)
     want = {
         "ifft_wires": (T.ntt_flops(n, nw), nw * n * 32),
         "ifft_perm": (T.ntt_flops(n), n * 32),
-        "coset_ifft_quot": (T.ntt_flops(m), m * 32),
-        "coset_ffts" if not streamed else "quotient_stream":
-            (T.ntt_flops(m, polys), polys * m * 32),
+        **r3,
         "commit_wires": (T.msm_flops(n + 2, nw), nw * (n + 2) * 32),
         "commit_perm": (T.msm_flops(n + 3), (n + 3) * 32),
         "commit_quot": (T.msm_flops(n + 2, nw), nw * (n + 2) * 32),

@@ -56,7 +56,10 @@ def test_streamed_quotient_equals_one_shot(monkeypatch):
 
 
 def test_default_prove_streams_and_gives_golden_bytes(monkeypatch):
+    """With the fused hook off, the prove streams (the default is the
+    fused round 3, tests/test_torch_round3_fused.py)."""
     ckt, be, pk, _ = port_keys()
+    monkeypatch.setattr(be, "quotient_poly_streamed", None)
     calls = []
     streamed = be.quotient_streamed
 
