@@ -78,12 +78,10 @@ def batch_inverse(v):
 
 # --- round 2: permutation running product -----------------------------------
 
-def perm_product(wires, id_tab, sig_tab, beta, gamma):
-    """z(w^j) running-product evaluations. wires/id_tab/sig_tab: (8, w, n)
-    (witness values, identity-permutation values k_i*w^j, sigma-mapped
-    identity values); beta/gamma: (8, 1, 1). Returns (8, n):
-    [1, prod_{t<j} num_t/den_t ...]."""
-    n = wires.shape[2]
+def perm_ratio(wires, id_tab, sig_tab, beta, gamma):
+    """The permutation argument's per-lane ratio num_j / den_j (8, n), from
+    (8, w, n) witness, identity-permutation and sigma-mapped identity
+    values and (8, 1, 1) beta, gamma."""
     t = _add(wires, gamma)
     num_f = _add(t, _mm(beta, id_tab))
     den_f = _add(t, _mm(beta, sig_tab))
@@ -94,23 +92,39 @@ def perm_product(wires, id_tab, sig_tab, beta, gamma):
             acc = _mm(acc, f[:, i])
         return acc
 
-    ratio = _mm(wire_reduce(num_f), batch_inverse(wire_reduce(den_f)))
+    return _mm(wire_reduce(num_f), batch_inverse(wire_reduce(den_f)))
+
+
+def perm_product(wires, id_tab, sig_tab, beta, gamma):
+    """z(w^j) running-product evaluations. wires/id_tab/sig_tab: (8, w, n)
+    (witness values, identity-permutation values k_i*w^j, sigma-mapped
+    identity values); beta/gamma: (8, 1, 1). Returns (8, n):
+    [1, prod_{t<j} num_t/den_t ...]."""
+    n = wires.shape[2]
+    ratio = perm_ratio(wires, id_tab, sig_tab, beta, gamma)
     run = cumprod(ratio[:, :n - 1])
     return torch.cat([_one_like(ratio[:, :1]), run], dim=1)
 
 
 # --- round 3: quotient evaluations ------------------------------------------
 
-def domain_tables(m, n, gen, group_gen, device):
-    """Witness-independent quotient-domain tables (8, m): coset points
-    ep_i = g*w^i, 1/Z_H(ep) tiled, and 1/(ep - 1)."""
-    w_rep = lift_scalar(group_gen, device).expand(FR_WORDS, m)
-    pw = cumprod(w_rep.contiguous())                 # w^(i+1)
-    g_c = lift_scalar(gen, device)
-    ep = torch.cat([g_c, _mm(pw[:, :m - 1], g_c)], dim=1)
+def domain_tables(m, n, gen, group_gen, device, lo=0, count=None):
+    """Witness-independent quotient-domain tables (8, count) over lanes
+    [lo, lo + count) of the m-point coset (count None: m - lo): coset
+    points ep_i = g*w^i, 1/Z_H(ep) tiled, and 1/(ep - 1). A mesh shard
+    builds its own lanes (lo and count multiples of m / n, where Z_H's
+    period starts)."""
+    count = m - lo if count is None else count
     ratio = m // n
+    if lo % ratio or count % ratio:
+        raise ValueError("domain_tables: lanes [%d, %d) do not start and "
+                         "end on Z_H's period %d" % (lo, lo + count, ratio))
+    w_rep = lift_scalar(group_gen, device).expand(FR_WORDS, count)
+    pw = cumprod(w_rep.contiguous())                 # w^(i+1)
+    g_c = lift_scalar(gen * pow(group_gen, lo, R_MOD) % R_MOD, device)
+    ep = torch.cat([g_c, _mm(pw[:, :count - 1], g_c)], dim=1)
     zh = _sub(fr_pow(ep[:, :ratio], n), _one_like(ep[:, :ratio]))
-    zh_inv = batch_inverse(zh).repeat(1, m // ratio)
+    zh_inv = batch_inverse(zh).repeat(1, count // ratio)
     shifted_inv = batch_inverse(_sub(ep, _one_like(ep)))
     return {"ep": ep, "zh_inv": zh_inv, "shifted_inv": shifted_inv}
 
@@ -121,12 +135,15 @@ def _pow5(x):
 
 
 def quotient_evals(selectors, sigmas, wires, z, pi, tabs, k, beta, gamma,
-                   alpha, alpha_sq_div_n, ratio):
+                   alpha, alpha_sq_div_n, ratio, z_next=None):
     """Coset evaluations of the quotient polynomial, elementwise on m lanes
     (prover_jax.quotient_evals_core). selectors (8, 13, m); sigmas/wires
     (8, 5, m); z/pi (8, m); k (8, 5, 1); scalars (8, 1). Selector order as
-    circuit.py: Q_LC x4, Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC."""
-    z_next = torch.roll(z, -ratio, dims=1)
+    circuit.py: Q_LC x4, Q_MUL x2, Q_HASH x4, Q_O, Q_C, Q_ECC. z_next: z
+    rolled by -ratio lanes (None: rolled here; a mesh shard passes its
+    lanes of the whole roll)."""
+    if z_next is None:
+        z_next = torch.roll(z, -ratio, dims=1)
     a, b, c, d, e = (wires[:, i] for i in range(5))
     ab = _mm(a, b)
     cd = _mm(c, d)

@@ -149,7 +149,9 @@ class TorchBackend:
         from its host lists once."""
         def build():
             dev = getattr(pk, "device_polys", None)
-            if dev is not None and dev[0] == self.device:
+            # a mesh's key build leaves sharded handles: not this backend's
+            if dev is not None and dev[0] == self.device and all(
+                    isinstance(h, torch.Tensor) for h in dev[1] + dev[2]):
                 return pk, list(dev[1]), list(dev[2])
             return (pk, [self.lift(s) for s in pk.selectors],
                     [self.lift(s) for s in pk.sigmas])

@@ -9,8 +9,12 @@ Runs the two sharded paths alone, then a whole prove: a mesh iNTT and a
 coset NTT held against the poly oracle, a preprocess of a tiny circuit on
 MeshBackend, a mesh MSM over its sharded commit key held against
 curve.g1_msm, and the prove on MeshBackend held byte for byte against
-PythonBackend's proof, which must verify.
-Raises on any mismatch; returns the backend's path counters.
+PythonBackend's proof, which must verify; then the same prove on a
+MeshBackend whose min_local (1) shards every handle of at least one lane
+a shard, byte for byte again, its handle counters showing the n- and
+m-lane state sharded and no handle replicated.
+Raises on any mismatch; returns the backend's path counters and the
+sharded backend's handle counters.
 """
 
 import random
@@ -20,6 +24,7 @@ from .. import kzg
 from .. import poly as P
 from ..circuit import PlonkCircuit
 from ..constants import R_MOD
+from ..poly import Domain
 from ..proof_io import serialize_proof
 from ..prover import prove
 from ..verifier import verify
@@ -78,6 +83,19 @@ def dryrun_multichip(n_shards, device=None):
            "mesh proof differs from the host oracle's")
     _check(verify(vk, ckt.public_input(), proof_mesh, rng=random.Random(2)),
            "mesh proof rejected")
+
+    sharded = MeshBackend(mesh, min_local=1)
+    proof_sharded = prove(random.Random(1), ckt, pk, sharded)
+    _check(serialize_proof(proof_sharded) == serialize_proof(proof_host),
+           "sharded mesh proof differs from the host oracle's")
+    m = Domain(6 * (ckt.n + 1) + 1).size
+    _check({ckt.n, m} <= set(sharded.sharded_handles)
+           and not sharded.replicated_handles,
+           "the sharded mesh kept handles whole: %s, %s" % (
+               dict(sharded.sharded_handles),
+               dict(sharded.replicated_handles)))
     return {"mesh_ntt_calls": dict(be.mesh_ntt_calls),
             "replicated_ntt_calls": dict(be.replicated_ntt_calls),
-            "mesh_msm_calls": be.mesh_msm_calls}
+            "mesh_msm_calls": be.mesh_msm_calls,
+            "sharded_handles": dict(sharded.sharded_handles),
+            "replicated_handles": dict(sharded.replicated_handles)}

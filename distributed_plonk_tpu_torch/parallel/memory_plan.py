@@ -12,11 +12,14 @@ Layout (ntt_mesh.MeshNttPlan): N = r*c, rows sharded over the mesh;
 every Fr element is (8,) int32 words, 32 B. Kernel 1 works in registers
 and allocates nothing beyond its output, so no product transient is
 budgeted (the JAX plan budgets XLA's un-fused f32 byte-product tensor).
-The round math runs on the lead device (mesh_backend), so round 3's
-planes are resident there, not sharded.
+MeshBackend keeps every handle of at least D x min_local lanes in lane
+shards and runs the round math shard by shard (parallel/sharded.py), so
+each device holds its shards' part of round 3's planes and tables, not
+the whole of them.
 """
 
 from ..backend.msm_torch import window_of
+from .msm_mesh import key_block
 from .ntt_mesh import _split_rc
 
 FR_BYTES = 8 * 4    # (8,) int32 words per Fr element
@@ -50,31 +53,43 @@ def ntt_mesh_plan(n, n_shards, batch=1, n_processes=1):
 
 
 def round3_mesh_plan(n, m, n_shards, n_processes=1):
-    """Round 3's one-shot quotient: bytes resident on the lead device (the
-    25 coset planes, the stacked selector, sigma and wire copies of the
-    quotient evaluation, 3 domain tables and the n-scale state: pk
-    polynomials, wire polynomials; every process of a multi-process mesh
-    holds them on its lead), per shard (the NTT of one batch of
-    TorchBackend.NTT_BATCH planes, from ntt_mesh_plan) and per process
-    (the shards it holds times the per-shard bytes)."""
-    planes = 25 * FR_BYTES * m
-    stacks = 23 * FR_BYTES * m
-    tables = 3 * FR_BYTES * m
-    base = 28 * FR_BYTES * n
-    ntt = ntt_mesh_plan(m, n_shards, batch=25, n_processes=n_processes)
+    """Round 3's one-shot quotient per shard, every handle sharded: the
+    shard's lanes of the 25 coset planes (planes), of the plane copies
+    and temporaries of the quotient evaluation (stacks: 23 planes' worth,
+    what a stacked evaluation copies; the mesh reads a few planes at a
+    time), of the 3 domain tables (tables) and of the n-lane state, pk
+    and wire polynomials (base); resident: the four
+    together, what a shard holds while the quotient evaluates; ntt: the
+    mesh NTT of one batch of the 25 planes (ntt_mesh_plan's per-shard
+    total); shard: base beside the larger of the NTT's working set and
+    the resident planes, stacks and tables, the shard's peak; per_process:
+    the shards one of n_processes processes holds times shard."""
+    d = n_shards
+    planes = 25 * FR_BYTES * m // d
+    stacks = 23 * FR_BYTES * m // d
+    tables = 3 * FR_BYTES * m // d
+    base = 28 * FR_BYTES * n // d
+    ntt = ntt_mesh_plan(m, d, batch=25, n_processes=n_processes)
+    shard = base + max(ntt["total"], planes + stacks + tables)
     return {"planes": planes, "stacks": stacks, "tables": tables,
-            "base": base, "lead": planes + stacks + tables + base,
-            "shard": ntt["total"], "per_process": ntt["per_process"]}
+            "base": base, "resident": planes + stacks + tables + base,
+            "ntt": ntt["total"], "shard": shard,
+            "local_shards": ntt["local_shards"],
+            "per_process": ntt["local_shards"] * shard}
 
 
 def msm_mesh_plan(n, n_shards, batch=1, n_processes=1):
-    """Byte budget per shard of a batch-B mesh MSM over an n-point key:
-    the window-shifted key (W copies of the range, 96 B a point), op words
-    and sort keys (4 B each per handle, window and point), the sort's
-    order and the chunk partials, and the bucket planes ((12, B, buckets)
-    projective, folded on the lead); per_process: the shards one of
-    n_processes processes holds times the per-shard total."""
-    local = -(-n // (16 * n_shards)) * 16
+    """Byte budget per shard of a batch-B mesh MSM over an n-point key,
+    split as MeshMsmContext splits it (a block of key_block(n, D) points
+    and an equal share of the rest a shard): the window-shifted key (W
+    copies of the range, 96 B a
+    point), op words and sort keys (4 B each per handle, window and
+    point), the sort's order and the chunk partials, and the bucket
+    planes ((12, B, buckets) projective, folded on the lead);
+    per_process: the shards one of n_processes processes holds times the
+    per-shard total."""
+    b = key_block(n, n_shards)
+    local = b + -(-(n - n_shards * b) // n_shards)
     _, c, windows, buckets = window_of(local)
     key = windows * local * 2 * FQ_BYTES
     entries = batch * windows * local

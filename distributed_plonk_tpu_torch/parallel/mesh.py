@@ -36,7 +36,9 @@ DEFAULT_TIMEOUT_S = 300
 class Mesh:
     """A 1-D mesh of `size` shards; this process holds shards
     [first, first + len(devices)), shard first + i on devices[i]. The lead
-    device (devices[0]) holds the prover's handles and runs the round math.
+    device (devices[0]) holds what is not sharded: handles too short to
+    shard, a sharded handle's lanes past its blocks, the MSM's folded
+    bucket planes (parallel/sharded.py, mesh_backend.py).
 
     transport None: one process holds every shard and no collective runs.
     Otherwise the mesh spans transport.world processes, each holding as

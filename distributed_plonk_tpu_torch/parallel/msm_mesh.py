@@ -2,16 +2,25 @@
 package's parallel/msm_mesh.py.
 
 The counterpart of the reference's distributed MSM (reference
-src/dispatcher2.rs:834-893, src/worker.rs:159-185): shard s holds the
-contiguous range [s L, (s+1) L) of the bases, L = padded_n / D, with the
-key padded by the identity to a multiple of 16 D (padding never changes a
-sum). Each device builds the window-shifted key of the ranges it holds
-(kernel 4's proj_add, msm_torch.shifted_key), and each shard, per
-commitment batch, runs kernel 3 (msm_digits, bucket_sums) on its range
-of the scalars. The D bucket planes then go to the lead device and fold
-there with kernel 4's proj_add, and one msm_tail (kernel 4) finishes the
-batch: the counterpart of the JAX package's all_gather + fold + finish,
-and of the reference's host-side sum of partial totals
+src/dispatcher2.rs:834-893, src/worker.rs:159-185): shard s holds a
+range of the bases. The ranges line up with the lane blocks of the
+handles the key commits (parallel/sharded.py), so a sharded handle's
+piece feeds its shard's kernel 3 as it is: a key of N points (a
+circuit's n + 3 powers padded to 32) serves circuits of domain n, the
+largest power of two below N, whose handles of n to n + 3 lanes all have
+blocks of b = n / D lanes. Shard s holds the points [s b, (s+1) b), then
+its slice [D b + s e, D b + (s+1) e) of the N - D b points past the
+blocks, e = ceil((N - D b) / D) (a handle's lanes past its blocks are on
+every process); every range is padded with the identity to local_n =
+b + e points (padding never changes a sum), so the shards share one
+window and one bucket-plane shape. Each
+device builds the window-shifted key of the ranges it holds (kernel 4's
+proj_add, msm_torch.shifted_key), and each shard, per commitment batch,
+runs kernel 3 (msm_digits, bucket_sums) on its range of the scalars,
+padded on its own device. The D bucket planes then go to the lead device
+and fold there with kernel 4's proj_add, and one msm_tail (kernel 4)
+finishes the batch: the counterpart of the JAX package's all_gather +
+fold + finish, and of the reference's host-side sum of partial totals
 (dispatcher2.rs:888-890). On a multi-process mesh each process builds the
 keys of only the shards it holds and folds their planes; one all-gather
 then brings every process's planes to every process, which folds them in
@@ -29,6 +38,15 @@ from ..backend import curve_torch as CT
 from ..backend import msm_torch as M
 from ..backend.limbs import lift
 from ..backend.msm_torch import DeviceCommitKey, MsmContext
+from .sharded import take_many
+
+
+def key_block(n_points, n_shards):
+    """The lane block of the handles an n_points key commits: n / D, n the
+    largest power of two below n_points (0 for a key of one point)."""
+    if n_points < 2:
+        return 0
+    return (1 << ((n_points - 1).bit_length() - 1)) // n_shards
 
 
 class MeshMsmContext:
@@ -41,13 +59,10 @@ class MeshMsmContext:
         d = mesh.size
         n = len(bases)
         self.n = n
-        self.padded_n = n + (-n) % (16 * d)
-        self.local_n = loc = self.padded_n // d
-        # the ranges of the shards this process holds, [lo, hi) of the
-        # padded key: only they are normalized and shifted here
-        lo = mesh.first * loc
-        hi = lo + len(mesh.devices) * loc
-        ax, ay, inf = self._affine_range(bases, lo, hi)
+        self.block = b = key_block(n, d)
+        self.extra = -(-(n - d * b) // d)      # e: past-block points a shard
+        self.local_n = loc = b + self.extra
+        self.padded_n = d * loc
         # one key build per device over the ranges of the shards it holds
         # (the build is elementwise per point, then one batch inversion),
         # split into each shard's (W * local_n, 24) key
@@ -57,10 +72,8 @@ class MeshMsmContext:
             held.setdefault(dev, []).append(s)
         self.shards = {}
         for dev, ss in held.items():
-            x, y, f = (torch.cat([t[..., (s - mesh.first) * loc:
-                                    (s - mesh.first + 1) * loc]
-                                  for s in ss], dim=-1).to(dev)
-                       for t in (ax, ay, inf))
+            x, y, f = (torch.cat(parts, dim=-1).to(dev) for parts in zip(
+                *[self._affine_range(bases, s) for s in ss]))
             key = M.shifted_key(x, y, f, c, windows).reshape(
                 windows, len(ss), loc, -1)
             for i, s in enumerate(ss):
@@ -69,46 +82,57 @@ class MeshMsmContext:
                     x[:, part], y[:, part], f[part],
                     key[:, i].reshape(windows * loc, -1).contiguous())
 
-    def _affine_range(self, bases, lo, hi):
-        """Columns [lo, hi) of the identity-padded key as (12, hi - lo)
-        affine Montgomery x, y and the (hi - lo,) infinity mask, on the
+    def _extra_range(self, s):
+        """Shard s's points past the blocks, [lo, hi)."""
+        lo = min(self.mesh.size * self.block + s * self.extra, self.n)
+        return lo, min(lo + self.extra, self.n)
+
+    def _affine_range(self, bases, s):
+        """Shard s's points, identity-padded to local_n, as (12, local_n)
+        affine Montgomery x, y and the (local_n,) infinity mask, on the
         lead device (a device key is normalized on its own device)."""
-        top = min(hi, self.n)
-        if top <= lo:       # identity padding only
-            return M.points_to_device([], hi - lo, self.mesh.lead)
-        pad = hi - top
+        b = self.block
+        lo, hi = self._extra_range(s)
+        pad = self.local_n - b - (hi - lo)
         if isinstance(bases, DeviceCommitKey):
             # a device-built key (Jacobian, arbitrary Z): the range
             # normalized once, then padded
-            ax, ay, inf = CT.batch_to_affine(
-                tuple(t[:, lo:top] for t in bases.point))
+            ax, ay, inf = CT.batch_to_affine(tuple(
+                torch.cat([t[:, s * b:(s + 1) * b], t[:, lo:hi]], dim=1)
+                for t in bases.point))
             ax, ay = (torch.nn.functional.pad(t, (0, pad)) for t in (ax, ay))
             inf = torch.nn.functional.pad(inf, (0, pad), value=True)
             return ax, ay, inf
-        return M.points_to_device(bases[lo:top], pad, self.mesh.lead)
+        return M.points_to_device(list(bases[s * b:(s + 1) * b])
+                                  + list(bases[lo:hi]), pad, self.mesh.lead)
 
     def stack(self, hs):
-        """(8, L <= n) handles -> one (8, B, padded_n) zero-padded batch on
-        the lead device."""
+        """Handles of at most n lanes (whole tensors or Sharded) -> the
+        batch's scalars per shard held here: one (8, B, local_n) tensor on
+        the shard's device, its range's lanes zero-padded there. A Sharded
+        handle's pieces are copied shard to shard; across processes only
+        lanes whose shard lies in another process move."""
         for h in hs:
             if h.shape[1] > self.n:
                 raise ValueError("commit: %d coefficients for a key of %d"
                                  % (h.shape[1], self.n))
-        return torch.stack([torch.nn.functional.pad(
-            h.to(self.mesh.lead), (0, self.padded_n - h.shape[1]))
-            for h in hs], dim=1)
+        b, base = self.block, self.mesh.size * self.block
+        pieces, tail = take_many(self.mesh, hs, 0, self.n, b,
+                                 width=self.local_n)
+        for (s, _), p in zip(self.mesh.shards(), pieces):
+            lo, hi = self._extra_range(s)
+            p[:, :, b:b + hi - lo].copy_(tail[:, :, lo - base:hi - base])
+        return pieces
 
-    def bucket_planes(self, v):
-        """(8, B, padded_n) scalars on the lead (the same in every process)
+    def bucket_planes(self, blocks):
+        """stack()'s per-shard scalars (the same values in every process)
         -> the bucket sums of the whole key, folded on the lead:
         ((12, B, n_buckets),)*3. The planes of the shards held here fold
         in shard order; across processes, each process's folded planes
         are all-gathered and folded in rank order, the same order in every
         process, so every process holds the same projective sums."""
-        loc = self.local_n
-        planes = [ctx.bucket_planes(v[:, :, s * loc:(s + 1) * loc]
-                                    .to(ctx.device))
-                  for s, ctx in self.shards.items()]
+        planes = [ctx.bucket_planes(v) for ctx, v in zip(
+            (self.shards[s] for s, _ in self.mesh.shards()), blocks)]
         lead = self.mesh.lead
         acc = planes[0]
         for p in planes[1:]:
@@ -123,8 +147,9 @@ class MeshMsmContext:
         return acc
 
     def msm_mont_limbs_many_async(self, hs):
-        """Enqueue the commitments of (8, L <= n) Montgomery Fr coefficient
-        handles, BATCH_CHUNK per launch sequence; returns force() -> affine
+        """Enqueue the commitments of Montgomery Fr coefficient handles of
+        at most n lanes (whole or Sharded), BATCH_CHUNK per launch
+        sequence; returns force() -> affine
         host points (the transfers and the host decode)."""
         tail = self.shards[self.mesh.first].tail
         totals = [tail(self.bucket_planes(
@@ -136,8 +161,8 @@ class MeshMsmContext:
         return force
 
     def msm_mont_limbs_many(self, hs):
-        """Commit (8, L <= n) Montgomery Fr coefficient handles -> affine
-        host points."""
+        """Commit Montgomery Fr coefficient handles of at most n lanes
+        (whole or Sharded) -> affine host points."""
         return self.msm_mont_limbs_many_async(hs)()
 
     def msm_mont_limbs(self, h):

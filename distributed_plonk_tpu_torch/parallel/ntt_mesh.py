@@ -31,17 +31,26 @@ size factor: the JAX tables fold n_inv into the post-scale instead.
 Every table is a gather from one table of powers of w, w^-1, g or g^-1,
 built on the shard's device (backend/tables_torch.py), once per mode.
 
-Handles enter and leave on the lead device in natural order, (8, B, n)
-Montgomery words, the layout of TorchBackend's handles: the scatter of A's
-row blocks to the shards and the gather of B's row blocks back are plain
-copies (views where a shard shares the lead's device).
+A batch enters either whole, (8, B, n) Montgomery words on the lead
+device (the same in every process), or as lane blocks: shard s holds
+lanes [s n/D, (s+1) n/D) of each polynomial on its own device (the
+layout of parallel/sharded.py's handles). Lane blocks are not A's row
+blocks: lane block s' holds rows j1 of block s' of A^T and every j2, so
+the entry is one more tile exchange, tile (s', s) = its columns j2 of
+block s. The output leaves whole (B's row blocks copied into one tensor
+on the lead; across processes, one all-gather of every process's row
+blocks) or as lane blocks: lane block u holds X[k1 + r k2] for k2 in
+block u and every k1, so the exit is a third tile exchange, tile (t, u)
+= shard t's rows k1 at columns k2 of block u. All three exchanges are
+the same transposing tile move (`_transpose`); the JAX package pays the
+entry and exit as GSPMD collectives (its with_sharding_constraint, JAX
+parallel/ntt_mesh.py:201-211). With lane blocks in and out, no whole
+(8, B, n) tensor is built anywhere.
 
-On a multi-process mesh (mesh.init_multihost) every process holds the
-same input and runs this body for the shards it holds: the tiles move in
-one all-to-all per call (the tiles between its own shards ride the send
-buffer too, so the result always passes through the collective), and
-one all-gather of every process's B row blocks leaves the whole output
-on every process.
+On a multi-process mesh (mesh.init_multihost) every process runs this
+body for the shards it holds: each exchange is one all-to-all (the tiles
+between its own shards ride the send buffer too, so the result always
+passes the collective), and a whole output takes one all-gather.
 """
 
 import torch
@@ -126,97 +135,138 @@ class MeshNttPlan:
         self._tables[key] = out
         return out
 
-    def ntt(self, v, inverse=False, coset=False):
-        """(8, B, n) Montgomery words on the lead device (the same values in
-        every process of a multi-process mesh) -> their (i)(coset)NTT,
-        natural order, on the lead device (in every process)."""
+    def ntt(self, v, inverse=False, coset=False, sharded=False):
+        """The (i)(coset)NTT of a batch of B polynomials, in natural order.
+
+        v: (8, B, n) Montgomery words on the lead device (the same values
+        in every process), or a list of this process's lane blocks: one
+        (8, B, n/D) tensor per shard it holds (mesh.shards() order), shard
+        s holding lanes [s n/D, (s+1) n/D) of each polynomial on its
+        device. The list is consumed (emptied), so each stage's blocks
+        free as the next stage takes them: the call holds at most two
+        copies of the batch. Returns the whole (8, B, n) on the lead (in
+        every process), or, with sharded=True, the output's lane blocks as
+        a list like v."""
         n, r, c = self.n, self.r, self.c
         shards = self.mesh.shards()
-        lead = self.mesh.lead
-        if v.dim() != 3 or v.shape[0] != FR.n_words or v.shape[2] != n:
-            raise ValueError("mesh ntt: expected (8, B, %d), got %s"
-                             % (n, tuple(v.shape)))
-        B = v.shape[1]
         ra, rb = self.rows_a, self.rows_b
+        if isinstance(v, torch.Tensor):
+            if v.dim() != 3 or v.shape[0] != FR.n_words or v.shape[2] != n:
+                raise ValueError("mesh ntt: expected (8, B, %d), got %s"
+                                 % (n, tuple(v.shape)))
+            B = v.shape[1]
+            a_all = v.reshape(FR.n_words, B, r, c).transpose(2, 3)
+            # shard s's rows j2 of A[j2, j1], sliced from the whole
+            blocks = [a_all[:, :, s * ra:(s + 1) * ra].contiguous().to(dev)
+                      for s, dev in shards]
+        else:
+            B = v[0].shape[1]
+            want = (FR.n_words, B, n // self.mesh.size)
+            if len(v) != len(shards) or \
+                    any(tuple(x.shape) != want for x in v):
+                raise ValueError("mesh ntt: expected %d lane blocks %s, "
+                                 "got %s" % (len(shards), want, [
+                                     tuple(x.shape) for x in v]))
+            # the entry relayout: lane block s' = rows j1 of block s' of
+            # A^T; tile (s', s) is its columns j2 of block s
+            blocks = self._transpose(v, rb, ra)
         tabs = self.tables(inverse, coset)
         plan_r = [ntt_torch.get_plan(r, dev) for _, dev in shards]
         plan_c = [ntt_torch.get_plan(c, dev) for _, dev in shards]
-        a_all = v.reshape(FR.n_words, B, r, c).transpose(2, 3)  # A[j2, j1]
 
         # stage 1 on every shard held here: pre-scale, r-point rows, mid
         # twiddle
         stage1 = []
-        for i, (s, dev) in enumerate(shards):
+        for i in range(len(blocks)):
             pre, mid, _ = tabs[i]
-            a = a_all[:, :, s * ra:(s + 1) * ra].contiguous().to(dev)
+            a, blocks[i] = blocks[i].reshape(FR.n_words, B, ra, r), None
             if pre is not None:
                 a = F.mont_mul(FR, a, pre)
             a = ntt_torch.ntt(plan_r[i], a.reshape(FR.n_words, B * ra, r),
                               inverse)
             stage1.append(F.mont_mul(FR, a.reshape(FR.n_words, B, ra, r),
                                      mid))
+        del a
 
         # the all-to-all: shard s's columns k1 of block t land in shard t's
         # rows j2 of block s, transposed to B[k1, j2]
-        stage2 = [torch.empty((FR.n_words, B, rb, c), dtype=torch.int32,
-                              device=dev) for _, dev in shards]
-        if self.mesh.transport is None:
-            for t, dst in enumerate(stage2):
-                for s, src in enumerate(stage1):
-                    tile = src[:, :, :, t * rb:(t + 1) * rb]
-                    dst[:, :, :, s * ra:(s + 1) * ra].copy_(
-                        tile.transpose(2, 3))
-        else:
-            self._exchange(stage1, stage2)
-        del stage1
+        stage2 = self._transpose(stage1, ra, rb)
 
         # stage 2 on every shard held here: c-point rows, inverse coset
-        # post-scale; then B's row blocks to the lead in natural order
+        # post-scale
+        ys = []
+        for i in range(len(stage2)):
+            _, _, post = tabs[i]
+            b, stage2[i] = stage2[i], None
+            y = ntt_torch.ntt(plan_c[i], b.reshape(FR.n_words, B * rb, c),
+                              inverse).reshape(FR.n_words, B, rb, c)
+            del b
+            if post is not None:
+                y = F.mont_mul(FR, y, post)
+            ys.append(y)
+        del y
+        if sharded:
+            # the exit relayout: lane block u holds X[k1 + r k2] for k2 in
+            # block u, at [k2, k1]; tile (t, u) is shard t's rows k1 at
+            # columns k2 of block u
+            return [x.reshape(FR.n_words, B, n // self.mesh.size)
+                    for x in self._transpose(ys, rb, ra)]
+        # B's row blocks to the lead in natural order
+        lead = self.mesh.lead
         out = torch.empty((FR.n_words, B, n), dtype=torch.int32,
                           device=lead)
         x_all = out.reshape(FR.n_words, B, c, r)    # X[k1 + r k2] at [k2, k1]
-        ys = []
-        for i, (t, dev) in enumerate(shards):
-            _, _, post = tabs[i]
-            y = ntt_torch.ntt(plan_c[i], stage2[i].reshape(
-                FR.n_words, B * rb, c), inverse).reshape(FR.n_words, B, rb,
-                                                         c)
-            if post is not None:
-                y = F.mont_mul(FR, y, post)
-            if self.mesh.transport is None:
+        if self.mesh.transport is None:
+            for (t, _), y in zip(shards, ys):
                 x_all[:, :, :, t * rb:(t + 1) * rb].copy_(y.transpose(2, 3))
-            else:
-                ys.append(y.to(lead))
-        if ys:
+        else:
             # every process's row blocks, (D, 8, B, r/D, c) in shard order
-            blocks = self.mesh.transport.all_gather(torch.stack(ys)).reshape(
-                self.mesh.size, FR.n_words, B, rb, c)
+            blocks = self.mesh.transport.all_gather(torch.stack(
+                [y.to(lead) for y in ys])).reshape(
+                    self.mesh.size, FR.n_words, B, rb, c)
             x_all.view(FR.n_words, B, c, self.mesh.size, rb).copy_(
                 blocks.permute(1, 2, 4, 0, 3))
         return out
 
-    def _exchange(self, stage1, stage2):
-        """The all-to-all across processes: every tile (s, t) of the shards
-        s held here goes, transposed, into slot rank(t) of one send buffer
-        ((W, k, k, 8, B, r/D, c/D), packed in (s, t) order), one collective
-        moves the slots, and each received tile lands at rows j2 of block s
-        of shard t's B. Tiles between shards of this process ride the
-        buffer's own slot, so the result always passes the collective."""
+    def _transpose(self, srcs, p, q):
+        """The tile exchange of all three relayouts. srcs: per shard held
+        here, a tensor of (8, B, p, D, q) layout, consumed (the list is
+        emptied as the tiles leave); returns per shard held here the (8,
+        B, q, D, p) tensor whose tile [:, :, :, s] is source s's tile
+        [:, :, :, t] transposed (t the destination). In one process: D x D
+        tile copies between the shards' devices. Across
+        processes: every tile goes, transposed, into slot rank(t) of one
+        send buffer ((W, k, k, 8, B, q, p), packed in (s, t) order), one
+        all_to_all moves the slots, and each received tile lands in block
+        s of shard t (tiles between this process's own shards ride its
+        own slot, so the result always passes the collective)."""
         mesh = self.mesh
-        w, k = mesh.world, len(stage1)
-        B = stage1[0].shape[1]
-        ra, rb = self.rows_a, self.rows_b
-        send = torch.empty((w, k, k, FR.n_words, B, rb, ra),
+        d = mesh.size
+        B = srcs[0].shape[1]
+        outs = [torch.empty((FR.n_words, B, q, d, p), dtype=torch.int32,
+                            device=dev) for _, dev in mesh.shards()]
+        w, k = mesh.world, len(srcs)
+        if mesh.transport is None:
+            for s in range(k):
+                src, srcs[s] = srcs[s].reshape(FR.n_words, B, p, d, q), None
+                for t, dst in enumerate(outs):
+                    dst[:, :, :, s].copy_(src[:, :, :, t].transpose(2, 3))
+            return outs
+        send = torch.empty((w, k, k, FR.n_words, B, q, p),
                            dtype=torch.int32, device=mesh.lead)
-        for i, src in enumerate(stage1):
-            # (8, B, c/D, r) -> its tiles by destination shard (q, j)
-            send[:, i].copy_(src.view(FR.n_words, B, ra, w, k, rb)
+        for i in range(k):
+            # (8, B, p, D, q) -> its tiles by destination shard (rank, j)
+            src, srcs[i] = srcs[i], None
+            send[:, i].copy_(src.reshape(FR.n_words, B, p, w, k, q)
                              .permute(3, 4, 0, 1, 5, 2))
+        del src
         recv = mesh.transport.all_to_all(send)
-        for j, dst in enumerate(stage2):
-            # tiles (p, i) -> rows of block s = p k + i
-            dst.view(FR.n_words, B, rb, w, k, ra).copy_(
+        del send
+        for j, dst in enumerate(outs):
+            # tiles (rank, i) -> block s = rank k + i
+            dst.view(FR.n_words, B, q, w, k, p).copy_(
                 recv[:, :, j].permute(2, 3, 4, 0, 1, 5))
+        return outs
 
     def kernel(self, inverse=False, coset=False):
         """(8, n) -> (8, n) Montgomery-boundary transform on the lead."""

@@ -375,3 +375,59 @@ def test_mesh_msm_matches_single_card_msm():
     hs = [TL.lift(_values(R_MOD, 1000, 90 + k), dev) for k in range(3)]
     got = MeshMsmContext(make_mesh(4, dev), bases).msm_mont_limbs_many(hs)
     assert got == M.MsmContext(bases, dev).msm_mont_limbs_many(hs)
+
+
+@pytest.mark.parametrize("inverse,coset", MODES)
+def test_mesh_sharded_ntt_matches_single_card_ntt(inverse, coset):
+    """The mesh NTT on lane blocks in and out (the entry and exit tile
+    exchanges, parallel/sharded.py's layout) over four shards of the card
+    against the single-card kernel 2 at 2^16, batch 2."""
+    from distributed_plonk_tpu_torch.parallel import sharded as S
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.ntt_mesh import MeshNttPlan
+    dev = _card()
+    n = 1 << 16
+    gen = torch.Generator(device="cpu").manual_seed(n + 2 * inverse + coset)
+    v = torch.randint(-2**31, 2**31, (8, 2, n), dtype=torch.int32,
+                      generator=gen).to(dev)
+    v[7] &= 0x3FFFFFFF
+    mesh = make_mesh(4, dev)
+    blocks, _ = S.take_many(mesh, [v[:, 0], v[:, 1]], 0, n, n // 4)
+    got = MeshNttPlan(mesh, n).ntt(blocks, inverse, coset, sharded=True)
+    want = N.ntt_cuda(N.get_plan(n, dev), v, inverse, coset)
+    assert torch.equal(torch.cat(got, dim=2), want)
+
+
+def test_mesh_sharded_round_math_matches_torch_backend():
+    """MeshBackend's round math on sharded handles (4 shards of the card,
+    min_local 1) against TorchBackend's on the whole handles: the linear
+    combination, blinding, synthetic division, evaluation, degree and
+    split of handles of 2^13 + 3 lanes, kernel 1 for every product."""
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    from distributed_plonk_tpu_torch.parallel import sharded as S
+    from distributed_plonk_tpu_torch.parallel.mesh import make_mesh
+    from distributed_plonk_tpu_torch.parallel.mesh_backend import \
+        MeshBackend
+    dev = _card()
+    n = 1 << 13
+    be = MeshBackend(make_mesh(4, dev), min_local=1)
+    ref = TorchBackend(device=dev)
+    polys = [_values(R_MOD, n + k, 200 + k) for k in range(4)]
+    z = _values(R_MOD, 1, 210)[0]
+    hs, ws = [be.lift(p) for p in polys], [ref.lift(p) for p in polys]
+    assert all(isinstance(h, S.Sharded) for h in hs)
+    lin = be.lin_comb_h(hs, [3, 5, 7, 11])
+    lin_w = ref.lin_comb_h(ws, [3, 5, 7, 11])
+    assert torch.equal(S.gather(lin), lin_w)
+    blinded = be.blind(hs[0], [1, 2], n)
+    assert torch.equal(S.gather(blinded), ref.blind(ws[0], [1, 2], n))
+    assert torch.equal(S.gather(be.synth_div_h(lin, z)),
+                       ref.synth_div_h(lin_w, z))
+    assert be.eval_many_h([(h, z) for h in hs]) == \
+        ref.eval_many_h([(w, z) for w in ws])
+    assert be.degree_is(hs[3], n + 2) == ref.degree_is(ws[3], n + 2)
+    size = n // 3 + 1                   # pieces straddle the shards
+    for a, b in zip(be.split(lin, size, 3, n), ref.split(lin_w, size, 3,
+                                                         n)):
+        assert torch.equal(S.gather(a), b)

@@ -131,13 +131,14 @@ def _check_msm(ctx, bases, scalars):
 def test_mesh_msm_matches_oracle_host_bases(mesh8):
     """test_mesh_parallel.py::test_mesh_msm_matches_oracle's shape: 64
     bases (two at infinity), scalars 0, 1 and r - 1 among them, 8 shards
-    of 16 (identity-padded to 128)."""
+    of 8: a block of 4 (a 32-lane handle's) and 4 of the 32 points past
+    the blocks each, no padding."""
     rng = np.random.default_rng(64)
     bases = [C.g1_mul(C.G1_GEN, int(rng.integers(1, 1 << 62)))
              for _ in range(62)] + [None, None]
     scalars = _fr_values(65, 61) + [0, 1, R_MOD - 1]
     ctx = MeshMsmContext(mesh8, bases)
-    assert (ctx.padded_n, ctx.local_n) == (128, 16)
+    assert (ctx.block, ctx.padded_n, ctx.local_n) == (4, 64, 8)
     _check_msm(ctx, bases, scalars)
 
 
@@ -181,7 +182,9 @@ def test_commit_launches_per_batch(device_key_msm, monkeypatch):
     got = single.msm_mont_limbs_many(hs)
     assert calls == {"msm_digits_ref": 2, "bucket_sums_ref": 2,
                      "msm_tail_ref": 2, "proj_add": 0}
-    assert got[2] == C.g1_msm(bases[16:32], _fr_values(72, 16))
+    # shard 1 of 64 points over 4: the block [8, 16), then [40, 48)
+    assert got[2] == C.g1_msm(bases[8:16] + bases[40:48],
+                              _fr_values(72, 16))
     for k in calls:
         calls[k] = 0
     monkeypatch.setattr(MeshMsmContext, "BATCH_CHUNK", 2)
@@ -193,19 +196,24 @@ def test_commit_launches_per_batch(device_key_msm, monkeypatch):
 
 def test_memory_plan_v2_over_four_shards():
     """2^21 over 4 shards, worked by hand: 2^19 elements a shard of 32 B
-    (16 MiB), two tables of the same size, three blocks in flight."""
+    (16 MiB), two tables of the same size, three blocks in flight; round
+    3 with every plane, table and n-lane handle sharded."""
     plan = memory_plan.ntt_mesh_plan(1 << 21, 4)
     assert (plan["r"], plan["c"], plan["local_elems"]) == (1024, 2048,
                                                            1 << 19)
     assert plan["data"] == 16 << 20 and plan["tables"] == 32 << 20
     assert plan["total"] == 80 << 20
     r3 = memory_plan.round3_mesh_plan(1 << 18, 1 << 21, 4)
-    assert r3["planes"] == 1600 << 20           # 25 x 64 MiB on the lead
-    assert r3["lead"] == (25 + 23 + 3) * (64 << 20) + 28 * (8 << 20)
-    assert r3["shard"] == 3 * 25 * (16 << 20) + (32 << 20)
+    assert r3["planes"] == 400 << 20            # 25 x 16 MiB a shard
+    assert r3["resident"] == (25 + 23 + 3) * (16 << 20) + 28 * (2 << 20)
+    assert r3["ntt"] == 3 * 25 * (16 << 20) + (32 << 20)
+    # the NTT of the 25 planes outweighs the quotient's planes and stacks
+    assert r3["shard"] == 28 * (2 << 20) + r3["ntt"]
+    assert r3["per_process"] == 4 * r3["shard"]
     # v2's commit key: 2^18 + 3 powers padded to 262,176 (a multiple of
-    # 32), then to 64 | 262,208: 65,552 points a shard, c = 7, 37 windows
+    # 32): a block of 2^16 points a shard (a 2^18-lane handle's) and 8 of
+    # the 32 past the blocks, 65,544 points, c = 7, 37 windows
     msm = memory_plan.msm_mesh_plan(262176, 4, batch=5)
-    assert (msm["local_points"], msm["c"], msm["windows"]) == (65552, 7, 37)
-    assert msm["key"] == 37 * 65552 * 96
-    assert msm["digits"] == 8 * 5 * 37 * 65552
+    assert (msm["local_points"], msm["c"], msm["windows"]) == (65544, 7, 37)
+    assert msm["key"] == 37 * 65544 * 96
+    assert msm["digits"] == 8 * 5 * 37 * 65544

@@ -9,7 +9,12 @@ test circuit's preprocess and prove on MeshBackend over 2 x 2 shards from
 the golden device SRS (tau = 0xDEADBEEF, prove rng Random(1)). Each child
 imports only the port and prints its results as one JSON line; the parent
 holds both ranks against the JAX package (poly's NTTs, curve.g1_msm, with
-tolerance 0), tests/fixtures/proof_small.hex and each other. The inputs
+tolerance 0), tests/fixtures/proof_small.hex and each other. Each child
+then preprocesses and proves again on a MeshBackend whose min_local (1)
+keeps every handle sharded, its lane blocks moved between the ranks by
+the collectives, and reports its handle counters and its shards' live
+bytes at round 3's quotient beside memory_plan's per-process figure.
+The inputs
 come from numpy.random.default_rng seeds, written by the parent for both
 children. The last tests need no group: the argument checks.
 """
@@ -95,6 +100,33 @@ out["replicated_ntt_calls"] = dict(be.replicated_ntt_calls)
 out["mesh_msm_calls"] = be.mesh_msm_calls
 out["collectives"] = {op: rec["calls"]
                       for op, rec in mesh4.transport.stats.items()}
+
+from distributed_plonk_tpu_torch.parallel import memory_plan
+from distributed_plonk_tpu_torch.parallel.sharded import Sharded
+sbe = MeshBackend(mesh4, min_local=1)
+live = {}
+quotient = sbe.quotient
+
+def spy(*args):
+    held = [h for h in args if isinstance(h, Sharded)] + [
+        h for a in args if isinstance(a, list) for h in a
+        if isinstance(h, Sharded)]
+    live["bytes"] = sum(sum(h.shard_bytes().values()) for h in held)
+    return quotient(*args)
+
+sbe.quotient = spy
+mesh4.transport.reset_stats()
+spk, _ = kzg.preprocess(srs, ckt, sbe)
+sproof = prove(random.Random(1), ckt, spk, sbe)
+out["sharded_proof"] = proof_io.serialize_proof(sproof).hex()
+out["sharded_handles"] = {str(k): v for k, v in sbe.sharded_handles.items()}
+out["replicated_handles"] = {str(k): v
+                             for k, v in sbe.replicated_handles.items()}
+out["sharded_collectives"] = {op: rec["calls"] for op, rec
+                              in mesh4.transport.stats.items()}
+out["live_bytes"] = live["bytes"]
+out["plan_bytes"] = memory_plan.round3_mesh_plan(
+    ckt.n, 8 * ckt.n, mesh4.size, n_processes=2)["per_process"]
 shutdown_multihost()
 print("RESULT " + json.dumps(out), flush=True)
 """
@@ -176,8 +208,8 @@ def test_mesh_ntt_matches_jax_poly_on_both_ranks(ranks, inputs, mode):
 
 
 def test_mesh_msm_matches_jax_g1_msm_on_both_ranks(ranks, inputs):
-    """16 bases over 8 shards pad to 128 points: rank 1's four ranges are
-    all identity padding, and the fold across ranks still gives the sum."""
+    """16 bases over 8 shards: a block of one point and one of the 8 past
+    the blocks a shard, and the fold across ranks gives the sum."""
     data, _ = inputs
     want = list(JC.g1_msm(data["bases"], data["scalars"]))
     assert [r["msm"] for r in ranks] == [want, want]
@@ -213,6 +245,23 @@ def test_ranks_hold_the_same_values(ranks):
         for key in ("mesh", "mesh4", "msm_shards"):
             r.pop(key)
     assert a == b
+
+
+def test_sharded_proof_matches_golden_on_both_ranks(ranks):
+    """With min_local 1 every handle of the prove is sharded over the two
+    ranks (n = 16 lanes: 4 a shard, 2 shards a rank), both ranks count
+    the same handles, none whole, and give the golden bytes; the live
+    bytes of each rank's shards at round 3's quotient (the 25 coset
+    planes) stay within memory_plan's per-process figure."""
+    golden = FIXTURE.read_text().strip()
+    n = ranks[0]["n"]
+    want = {str(n): 36 + 14, str(n + 2): 12, str(n + 3): 3,
+            str(8 * n): 27}
+    for r in ranks:
+        assert r["sharded_proof"] == golden
+        assert r["sharded_handles"] == want and not r["replicated_handles"]
+        assert 0 < r["live_bytes"] <= r["plan_bytes"]
+    assert ranks[0]["sharded_collectives"] == ranks[1]["sharded_collectives"]
 
 
 class _Stub:
@@ -267,5 +316,10 @@ def test_memory_plan_per_process():
     assert msm["per_process"] == 2 * msm["total"]
     r3 = memory_plan.round3_mesh_plan(1 << 13, 1 << 16, 4, n_processes=2)
     assert r3["per_process"] == 2 * r3["shard"]
+    # a shard holds the fourth part of the 25 coset planes and tables
+    assert 4 * r3["planes"] == 25 * 32 << 16
+    assert 4 * r3["tables"] == 3 * 32 << 16
+    assert r3["shard"] == r3["base"] + max(
+        r3["ntt"], r3["planes"] + r3["stacks"] + r3["tables"])
     with pytest.raises(ValueError):
         memory_plan.ntt_mesh_plan(1 << 16, 4, n_processes=3)
