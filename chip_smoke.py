@@ -101,10 +101,12 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    child process) to the same bytes; the rollup
    proves cold and warm on TorchBackend and on MeshBackend(make_mesh(4))
    to the same bytes; every proof verifies.
-11. Fleet: the sharded 4-step FFT's stage panels (kernels 1 and 2 over
-   each FFT1 row panel and FFT2 column panel of a 4-worker plan) against
-   their plain versions in all four modes at 2^16 and 2^21, then four
-   port workers (runtime/worker.py, one process and CUDA context each on
+11. Fleet: (a) the sharded 4-step FFT's stage panels (kernels 1 and 2
+   over each FFT1 row panel and FFT2 column panel of a 4-worker plan)
+   against their plain versions in all four modes at 2^16 and 2^21; then,
+   in a child process (phase_child "fleet", beside phases 12 and 13), the
+   v1 keys preprocessed there from the device SRS (the parent's vk) and
+   four port workers (runtime/worker.py, one process and CUDA context each on
    this card) behind the port's Dispatcher: every worker reports backend
    torch on CUDA; fft_dist of one 2^21 vector, coset forward and coset
    inverse, equals the single-card ntt; a fleet MSM over v2's commit key
@@ -126,9 +128,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    worker (the dispatcher raises it), or any recovery by the dispatcher
    (a reconnect, an adopted range, a rerouted NTT or evaluation, a
    replan, a quarantine), fails the phase.
-12. Elastic (elastic_checks): the v1 workload through RemoteBackend over
-   port workers spawned on this card by the port's WorkerSupervisor and
-   joined through the dispatcher's membership server: slot 0's store is
+12. Elastic (elastic_checks, in a child process: phase_child "elastic",
+   beside phase 11's child and phase 13): the v1 workload through
+   RemoteBackend over port workers spawned on this card by the port's
+   WorkerSupervisor and joined through the dispatcher's membership
+   server: slot 0's store is
    provisioned by scripts/torch_warmup.py --aot in a child process (the
    v1 bucket's keys and the kernel build's `kbuild:` artifact); two
    workers; two more JOIN (the epoch rises, the sharded FFT plans over
@@ -152,8 +156,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 13. Service: the port's ProofService on this card over TCP (a
    ServiceClient), with two pool workers, a store, a journal, chaos on
    and four slots of cuda:0 (so the mesh class leases a 2-slot submesh):
-   PING; WARMUP of v1 twice (built, then memory); a rollup job (height
-   16, 8 updates, seed 3: the pool class), then, once the scheduler is
+   a rollup job (height 16, 8 updates, seed 3: the pool class), then,
+   once the scheduler is
    building its keys, four v1 jobs (seeds 11-14: one prove_many batch)
    and the v2 job (seed 11: the mesh class); every job done, its RESULT
    bytes equal to a direct prove on phase 3's, the zoo's and phase 8's
@@ -170,8 +174,25 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    on keys the child builds on the card, the kill seen as a retry, per-
    kind p50/p95 seconds printed; the restarted services recover its
    finished jobs too. Every kernel entry must launch in the phase; per-job wait
-   and run seconds, key-build seconds and the phase's peak memory are
-   printed beside the card's name and power limit.
+   and run seconds, key-build seconds, each step's seconds and the phase's
+   peak memory are printed beside the card's name and power limit. The
+   PING and the two WARMUPs moved to 13b.
+13b. Daemon (daemon_checks): `python -m distributed_plonk_tpu_torch.service
+   --port 0 --obs-port 0 --store-dir --journal-dir --build-dir (this run's
+   build: no second nvcc) --autoscale dry` as a child: its start line
+   names cuda:0 and the dry mode; PING; WARMUP of v1 twice (built, then
+   memory); one v1 job over TCP whose bytes equal its direct prove on
+   phase 3's warm backend and verify, and which launched every kernel
+   entry of the path in the daemon's process (METRICS' launch counters
+   read just before and just after it); /autoscale shows mode dry, ticks
+   and no decision applied (no actuation counter in METRICS, whose build
+   record says the kernels came from the build directory);
+   scripts/console.py --obs --once --logs 5 (the standard-library console,
+   which serves either package's daemon) exits 0 and prints the service's
+   readiness; SIGTERM drains it and it exits 0.
+   Then the fleet and elastic children are joined: their lines are
+   printed, each prefixed with its name; a child that exits non-zero,
+   writes no result or outlives CHILD_LIMIT_S fails the run.
 14. Observe and calibrate: the card's own integer peak (SMs x 64 IMAD
    per clock x the maximum SM clock nvidia-smi reports); a traced warm
    prove of v1 and of v2, whose kernel events fold into the
@@ -248,9 +269,12 @@ import gc
 import hashlib
 import json
 import os
+import pickle
 import random
 import re
+import select
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -953,6 +977,148 @@ def fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n):
         w.close()
 
 
+def fleet_checks(ckt, pk, vk, golden, ck2, be2, dev, rng):
+    """Phase 11's steps (b)-(e) (see the module docstring): four port
+    workers on this card behind the port's Dispatcher; the sharded FFT
+    of one 2^21 vector, a fleet MSM over v2's commit key `ck2` against
+    `be2`'s single-card commitment, the v1 proof through the fleet,
+    sharded and unsharded, and the observability plane. Runs in a child
+    process (phase_child), beside phases 12 and 13."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.backend import ntt_torch as N
+    from distributed_plonk_tpu_torch.backend.limbs import lift, lower
+    from distributed_plonk_tpu_torch.constants import R_MOD
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.runtime import protocol
+    from distributed_plonk_tpu_torch.runtime.dispatcher import RemoteBackend
+    from distributed_plonk_tpu_torch.verifier import verify
+    n = ckt.n
+    steps = Steps()
+    workdir = tempfile.mkdtemp(prefix="dpt_fleet_")
+    t = time.perf_counter()
+    fleet = Fleet(4, workdir)
+    try:
+        counters = FleetCounters()
+        d = fleet.dispatcher(counters)
+        print("4 port workers up in %.3f s" % (time.perf_counter() - t))
+        for i, snap in enumerate(d.health()):
+            assert snap["backend"] == "torch" and \
+                snap["device"].startswith("cuda"), (i, snap)
+        print("HEALTH: every worker reports backend torch on %s"
+              % sorted({s["device"] for s in d.health()}))
+        steps.done("four workers up")
+
+        # (b) the sharded 4-step FFT of one 2^21 vector, coset forward and
+        # coset inverse, against the single-card K2 on the same values
+        size = 1 << 21
+        plan = N.get_plan(size, dev)
+        values = [rng.randrange(R_MOD) for _ in range(size)]
+        h = lift(values, dev).reshape(8, 1, size)
+        for inverse in (False, True):
+            before = worker_launches(d)
+            t = time.perf_counter()
+            got = d.fft_dist(values, inverse=inverse, coset=True)
+            secs = time.perf_counter() - t
+            launch_delta(before, worker_launches(d),
+                         "fft_dist 2^21 coset inverse=%d" % inverse,
+                         ("mont_mul", "ntt"))
+            want = lower(N.ntt(plan, h, inverse, True)[:, 0])
+            assert got == want, ("fft_dist 2^21", inverse)
+            print("fft_dist 2^21 coset inverse=%d over 4 workers: %.3f s, "
+                  "equal to the single-card ntt" % (inverse, secs),
+                  flush=True)
+        del values, h, got, want
+        counters.check("fft_dist")
+        steps.done("(b) fft_dist 2^21, forward and inverse")
+
+        # (c) a fleet MSM over v2's commit key (2^18 + 3 powers padded to
+        # a multiple of 32), against the single-card commitment
+        rb = RemoteBackend(d)
+        t = time.perf_counter()
+        host_ck = rb._host_bases(ck2)
+        print("v2 commit key to host affine points (%d): %.3f s"
+              % (len(host_ck), time.perf_counter() - t))
+        scalars = [rng.randrange(R_MOD) for _ in range(V2_POWERS)]
+        before = worker_launches(d)
+        t = time.perf_counter()
+        fleet_point = rb.commit(ck2, scalars)
+        msm_s = time.perf_counter() - t
+        launch_delta(before, worker_launches(d), "the fleet msm",
+                     ("msm_digits", "bucket_sums", "msm_tail", "proj_add"))
+        t = time.perf_counter()
+        single = be2.commit_many_h(ck2, [lift(scalars, dev)])[0]
+        single_s = time.perf_counter() - t
+        assert fleet_point == single, "fleet msm"
+        print("fleet msm over %d bases (4 ranges, keys built by the "
+              "workers): %.3f s; equal to TorchBackend.commit_many_h "
+              "(%.3f s warm)" % (len(host_ck), msm_s, single_s), flush=True)
+        del host_ck, scalars, rb
+        counters.check("fleet msm")
+        steps.done("(c) the fleet msm over v2's key")
+
+        # (d) the v1 proof through the fleet: every NTT sharded
+        # (dist_fft_min = n), then whole NTTs round-robin
+        for label, fft_min in (("sharded", n), ("unsharded", None)):
+            dtr = Tracer(proc="dispatcher")
+            dd = fleet.dispatcher(counters, tracer=dtr)
+            be_f = RemoteBackend(dd, dist_fft_min=fft_min)
+            stats0 = dd.stats()
+            before = worker_launches(dd)
+            tr = Tracer()
+            t = time.perf_counter()
+            proof = prove(random.Random(1), ckt, pk, be_f, tracer=tr)
+            secs = time.perf_counter() - t
+            fleet_launches = launch_delta(
+                before, worker_launches(dd), "the %s fleet prove" % label,
+                BASE_KERNELS + ("proj_add",))
+            blob = proof_io.serialize_proof(proof)
+            assert blob == golden, "%s fleet proof bytes" % label
+            assert verify(vk, ckt.public_input(), proof,
+                          rng=random.Random(2))
+            served = [{protocol.tag_name(int(k)): v - s0.get(k, 0)
+                       for k, v in s1.items() if v - s0.get(k, 0)}
+                      for s0, s1 in zip(stats0, dd.stats())]
+            # every worker took its share of each offloaded kind of work
+            must = ("MSM", "EVAL") + (("FFT1", "FFT2") if fft_min
+                                      else ("NTT",))
+            idle = [(i, t) for i, sv in enumerate(served) for t in must
+                    if not sv.get(t)]
+            assert not idle, ("%s fleet prove: workers served none of"
+                              % label, idle, served)
+            merged = dd.collect_trace()
+            spans = collections.defaultdict(float)
+            for ev in merged["events"]:
+                if ev["proc"].startswith("worker"):
+                    spans[ev["span"]] += ev["dur_s"]
+            print("%s fleet prove: %.3f s, equal to the fixture, verifies"
+                  % (label, secs))
+            print("  rounds: " + json.dumps(
+                {k: round(v, 4) for k, v in tr.totals(0).items()}))
+            print("  worker span seconds (summed over workers): "
+                  + json.dumps({k: round(v, 3)
+                                for k, v in sorted(spans.items())}))
+            print("  requests served per worker: " + json.dumps(served))
+            kernels_per = {k: v for k, v in fleet_launches.items() if v}
+            print("  kernel launches per %s fleet prove: %s"
+                  % (label, json.dumps(kernels_per)), flush=True)
+            dd.pool.shutdown()
+            for w in dd.workers:
+                w.close()
+        counters.check("fleet proves")
+        steps.done("(d) the sharded and unsharded v1 fleet proves")
+
+        # (e) the observability plane over the same workers: a third,
+        # sharded v1 prove with a PROFILE capture armed on worker 0, then a
+        # METRICS_FETCH scrape of all four and a LOG_FETCH
+        fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n)
+        fleet.check_alive()
+        steps.done("(e) the profiled fleet prove, METRICS_FETCH, LOG_FETCH")
+        d.shutdown()
+    finally:
+        fleet.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def mode_name(inverse, coset):
     return "%s%s" % ("inverse" if inverse else "forward",
                      " coset" if coset else "")
@@ -1594,7 +1760,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
 
     The batch is deterministic: the rollup is submitted first and the
     four v1 jobs only once the scheduler has started the rollup's key
-    build (its bucket_misses is 2). The scheduler is one thread, so the
+    build (its bucket_misses is 1). The scheduler is one thread, so the
     v1 jobs wait in the queue until that build is done, and its next pop
     takes all four (the pop takes every queued job of the head's shape,
     up to max_batch 8), and the pool proves a batch group as one
@@ -1625,11 +1791,6 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
     def say(msg):
         print("[%s] %s" % (smi, msg), flush=True)
 
-    def same_vk(a, b):
-        return all(getattr(a, k) == getattr(b, k) for k in (
-            "domain_size", "num_inputs", "selector_comms", "sigma_comms",
-            "k", "g2", "tau_g2"))
-
     # (label, RESULT header, RESULT bytes, bucket vk, direct prove): held
     # to each other after the launch counters are read, so the direct
     # proves' launches do not count as the service's
@@ -1653,18 +1814,16 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
     t_phase = time.perf_counter()
     mem0 = reset_peak()
     done_blobs = {}
+    steps = Steps(say)
     try:
         # --- service 1: four slots of this card, chaos on -------------------
         svc = ProofService(chaos=True, devices=[device] * 4, **kw).start()
         _build.reset_launches()
         try:
             with ServiceClient("127.0.0.1", svc.port) as c:
-                c.ping()
-                w = [c.warmup(v1), c.warmup(v1)]
-                assert [x["source"] for x in w] == ["built", "memory"], w
                 rid = c.submit(dict(rollup, seed=3))["job_id"]
                 deadline = time.monotonic() + 300
-                while c.metrics()["counters"].get("bucket_misses", 0) < 2:
+                while c.metrics()["counters"].get("bucket_misses", 0) < 1:
                     assert time.monotonic() < deadline, "rollup key build"
                     time.sleep(0.01)
                 v1_ids = [c.submit(dict(v1, seed=s))["job_id"]
@@ -1677,6 +1836,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                 assert sts[rid]["placement"] == "pool", sts[rid]
                 assert sts[v2_id]["placement"] == "mesh", sts[v2_id]
                 assert max(sts[j]["batch_size"] for j in v1_ids) >= 2
+                steps.done("the rollup, four v1 and the v2 job done")
 
                 # each job's bytes against a direct prove on a warm backend
                 res1 = svc.buckets.get(JobSpec.from_wire(v1))
@@ -1723,6 +1883,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                 say("aggregate of the 4 v1 jobs: built in %.3f s on the "
                     "server, fetched and verified in %.3f s"
                     % (rep["build_s"], time.perf_counter() - t))
+                steps.done("RESULT, AGGREGATE")
 
                 m = c.metrics()
                 ctr, hist = m["counters"], m["histograms"]
@@ -1772,6 +1933,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                 say("kill at round 2: retried once, resumed from round 2's "
                     "snapshot, bytes equal the direct prove (run %.3f s)"
                     % st["run_s"])
+                steps.done("METRICS, the kill at round 2")
                 build = c.metrics()["build"]
                 say("the service's kernel build: %s" % json.dumps(build))
                 if device.type == "cuda":
@@ -1785,6 +1947,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                 # the operator's load generator against this service
                 loadgen_done = loadgen_checks(say, svc.port, device,
                                               specs["loadgen"])
+                steps.done("scripts/torch_loadgen.py")
         finally:
             svc.shutdown()
 
@@ -1805,6 +1968,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
         ctr = svc.metrics.snapshot()["counters"]
         assert ctr.get("jobs_recovered_finished") == \
             len(done_blobs) + len(loadgen_done), ctr
+        steps.done("service 2, crashed at a journal ROUND2")
 
         # --- service 3: restart on the same store and journal ----------------
         svc = ProofService(**kw).start()
@@ -1839,6 +2003,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                    hist["bucket_disk_load"]["sum_s"]))
         finally:
             svc.shutdown()
+        steps.done("service 3, restarted")
         launches = read_launches("the service phase", PATH_KERNELS + (
             "proj_add", "proj_add_mixed"))
         say("service phase: %.3f s, peak device memory above the resident "
@@ -1855,6 +2020,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
             pub = [int(x, 16) for x in header["public_input"]]
             assert verify(vk, pub, proof_io.deserialize_proof(blob),
                           rng=random.Random(2)), "%s: verify" % label
+        steps.done("the direct proves")
         say("every service proof equals its direct prove on an earlier "
             "phase's warm backend (v1 on phase 3's, the rollup on the "
             "zoo's with the bucket's pk, v2 on phase 8's; circuit build "
@@ -1863,6 +2029,155 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
         return launches
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+DAEMON_LIMIT_S = 300
+CONSOLE = os.path.join(HERE, "scripts", "console.py")
+
+
+def daemon_checks(smi, v1_ref, device="cuda:0",
+                  spec=SERVICE_SPECS["v1"], seed=11):
+    """The daemon step (13b): `python -m distributed_plonk_tpu_torch.service`
+    as an operator starts it, a child with --port 0 --obs-port 0, a
+    temporary store and journal, --build-dir at this run's build (so no
+    second nvcc) and --autoscale dry. Its start line must name the
+    device and the dry mode; over TCP (the port's ServiceClient): PING,
+    WARMUP of the v1 spec twice ("built", then "memory"; moved here from
+    phase 13) and one v1 job (circuit seed `seed`, prove rng
+    Random(seed)) whose bytes equal its direct prove on phase 3's warm
+    backend `v1_ref` = (backend, pk, vk) and verify under that vk; on the
+    card the job must launch every kernel of PATH_KERNELS in the daemon's
+    process (METRICS' `launches`, read just before and just after the
+    job); /autoscale shows mode dry, ticks, and no decision applied;
+    scripts/console.py --once --logs 5 exits 0 and prints the service's
+    readiness; METRICS shows the kernels found in the build directory
+    (no nvcc) and no actuation; SIGTERM drains it and it exits 0. Prints
+    its start-to-listening seconds, the job's wait and run seconds and
+    its launches (the daemon reports no peak device memory); returns the
+    launches."""
+    from distributed_plonk_tpu_torch import proof_io
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.prover import prove
+    from distributed_plonk_tpu_torch.service import ServiceClient
+    from distributed_plonk_tpu_torch.service.jobs import JobSpec, \
+        build_circuit
+    from distributed_plonk_tpu_torch.verifier import verify
+
+    def say(msg):
+        print("[%s] %s" % (smi, msg), flush=True)
+
+    device = torch.device(device)
+    be, pk, vk = v1_ref
+    workdir = tempfile.mkdtemp(prefix="dpt-daemon-")
+    cmd = [sys.executable, "-m", "distributed_plonk_tpu_torch.service",
+           "--port", "0", "--obs-port", "0",
+           "--store-dir", os.path.join(workdir, "store"),
+           "--journal-dir", os.path.join(workdir, "journal"),
+           "--autoscale", "dry"]
+    if device.type == "cuda":
+        cmd += ["--build-dir", os.path.dirname(_build.build_dir())]
+    else:
+        cmd += ["--device", str(device)]
+    steps = Steps(say)
+    log = open(os.path.join(workdir, "daemon.log"), "w")
+    t = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=log,
+                         text=True, start_new_session=True)
+    try:
+        start = None
+        while start is None:
+            assert time.perf_counter() - t < DAEMON_LIMIT_S, \
+                "no start line from the daemon"
+            assert p.poll() is None, "the daemon exited before listening"
+            if select.select([p.stdout], [], [], 1.0)[0]:
+                line = p.stdout.readline()
+                if line.startswith("{"):
+                    start = json.loads(line)
+        listen_s = time.perf_counter() - t
+        say("daemon start line after %.3f s: %s" % (listen_s,
+                                                    line.strip()))
+        assert start["device"] == ("cuda:0" if device.type == "cuda"
+                                   else str(device)), start
+        assert start["autoscale"] == "dry", start
+        steps.done("the daemon listening")
+        host, port = start["listening"].rsplit(":", 1)
+        obs = "http://" + start["obs"]
+        with ServiceClient(host, int(port)) as c:
+            c.ping()
+            w = [c.warmup(spec), c.warmup(spec)]
+            assert [x["source"] for x in w] == ["built", "memory"], w
+            steps.done("PING, WARMUP twice (the keys built, then memory)")
+            before = c.metrics()["launches"]
+            jid = c.submit(dict(spec, seed=seed))["job_id"]
+            st = c.wait(jid, timeout_s=DAEMON_LIMIT_S, poll_s=0.1)
+            assert st["state"] == "done", st
+            ctr = c.metrics()
+            header, blob = c.result(jid)
+            steps.done("one v1 job")
+        launches = {k: v - before[k] for k, v in ctr["launches"].items()}
+        if device.type == "cuda":
+            missing = [k for k in PATH_KERNELS if not launches[k]]
+            assert not missing, ("the daemon's v1 job", missing, launches)
+        built = ctr["build"]
+        counters = ctr["counters"]
+        if device.type == "cuda":
+            assert built["source"] == "local" and built["nvcc_s"] is None, \
+                built
+        with urllib.request.urlopen(obs + "/autoscale", timeout=30) as r:
+            asc = json.loads(r.read())
+        assert asc["mode"] == "dry" and asc["ticks"] >= 1, asc
+        assert not any(d["applied"] for d in asc["last_decisions"]), asc
+        applied = {k: v for k, v in counters.items() if k in (
+            "autoscale_scale_ups", "autoscale_scale_downs",
+            "autoscale_lease_resizes", "autoscale_sheds")}
+        assert counters.get("autoscale_ticks", 0) >= 1 and not applied, \
+            counters
+        out = subprocess.run([sys.executable, CONSOLE, "--obs",
+                              start["obs"], "--once", "--logs", "5"],
+                             cwd=HERE, capture_output=True, text=True,
+                             timeout=60)
+        assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+        lines = out.stdout.splitlines()
+        assert lines and lines[0].startswith("service  ok=True"), lines
+        assert any(ln.startswith("autoscale mode=dry") for ln in lines)
+        steps.done("/autoscale and scripts/console.py --once")
+        for ln in lines:
+            say("console | " + ln)
+        p.send_signal(signal.SIGTERM)
+        rest, _ = p.communicate(timeout=60)
+        assert p.returncode == 0, (p.returncode, rest)
+        drained = json.loads(rest.strip().splitlines()[-1])
+        assert drained["drained"] == "SIGTERM" and drained["clean"], drained
+        steps.done("SIGTERM drained, exit 0")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+        with open(os.path.join(workdir, "daemon.log")) as f:
+            tail = f.read()[-3000:]
+        shutil.rmtree(workdir, ignore_errors=True)
+    # the job's bytes against its direct prove on phase 3's warm backend
+    # and keys, and verify under their vk
+    job_ckt = build_circuit(JobSpec.from_wire(dict(spec, seed=seed)))
+    want = proof_io.serialize_proof(prove(random.Random(seed), job_ckt, pk,
+                                          be))
+    assert blob == want, "the daemon's proof differs from the direct prove"
+    assert verify(vk, [int(x, 16) for x in header["public_input"]],
+                  proof_io.deserialize_proof(blob), rng=random.Random(2))
+    say("daemon: one v1 job (seed %d) equal to its direct prove on phase "
+        "3's warm backend, verifies; wait %.3f s, run %.3f s, placement "
+        "%s; launches in the daemon %s; the kernels from the build "
+        "directory (%s); /autoscale mode %s after %d ticks, decisions %d, "
+        "none applied; SIGTERM: %s; the daemon reports no peak device "
+        "memory" % (
+            seed, st["wait_s"], st["run_s"], st["placement"],
+            json.dumps(launches), built["source"], asc["mode"],
+            asc["ticks"], len(asc["last_decisions"]), json.dumps(drained)))
+    if tail.strip():
+        say("daemon stderr tail: " + tail.strip().replace("\n", " | ")
+            [-1000:])
+    return launches
 
 
 ELASTIC_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums",
@@ -1927,9 +2242,9 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
        one-worker fleet, with the actuating autoscaler (1 to 2 workers):
        three v1 jobs (seeds 11-13, the first flagship) queue, the
        autoscaler scales up (a JOIN), every proof equals its direct
-       TorchBackend prove on phase 3's warm backend, and the idle service
-       retires back to one worker by drain-then-LEAVE, with no respawn and
-       no flap.
+       TorchBackend prove on `v1_ref` (in the child: its own backend and
+       v1 keys), and the idle service retires back to one worker by
+       drain-then-LEAVE, with no respawn and no flap.
 
     Every worker of each step must launch every kernel of the fleet
     prove's path (ELASTIC_KERNELS). Prints each prove's seconds, each
@@ -1977,6 +2292,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
     dev_args = [] if worker_dev is None else ["--device", worker_dev]
     t_phase = time.perf_counter()
     mem0 = reset_peak()
+    steps = Steps(say)
     workdir = tempfile.mkdtemp(prefix="dpt-elastic-")
     total = collections.Counter()
     procs = []
@@ -2073,6 +2389,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
         say("step 1: 2 workers joined in %.3f s" % (time.perf_counter() - t))
         _be, served = fleet_prove(d, "step 1 prove (2 workers)")
         assert served == [0, 1], served
+        steps.done("1")
 
         # --- 2. two more slots JOIN: the next prove plans over 4 ------------
         epoch = d.epoch
@@ -2100,6 +2417,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             assert kbuild["key"].startswith("kbuild:") and \
                 kbuild["bytes"] > 0, warm_line
             assert kbuild["key"] in ArtifactStore(s00).keys()
+        steps.done("2 (and the warmup's wait)")
 
         # --- 3. a proc kill mid-prove heals at the same index ---------------
         victim_port = d.workers[1].port
@@ -2174,6 +2492,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
         total.update(elastic_delta(before, health_launches(d, "step 3", kind),
                                    "step 3", must=BASE_KERNELS, exempt=(1,)))
         faults.rules.clear()
+        steps.done("3")
 
         # --- 4. a lying worker: quarantine, replace, challenge, rejoin ------
         # a worker that keeps lying, for the refused challenge (static
@@ -2235,6 +2554,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             assert builds[1]["source"] == "peer" and \
                 builds[1]["nvcc_s"] is None, builds[1]
         sup.stop()      # frees the card for step 5
+        steps.done("4")
 
         # --- 5. the service on the fleet, with the autoscaler ----------------
         wait_width(d5, 1)
@@ -2321,6 +2641,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                            json.dumps(dd["detail"])))
         finally:
             svc.shutdown()
+        steps.done("5")
         say("elastic phase: %.3f s; this process's peak device memory above "
             "its resident %.1f MiB; fleet launches %s" % (
                 time.perf_counter() - t_phase, peak_mib(mem0),
@@ -2827,6 +3148,153 @@ def multihost_checks(smi, ckt, dev, rng):
             for k in sorted(set().union(*per_rank))}
 
 
+
+class Steps:
+    """Prints the seconds of each step of a phase: done(label) ends the
+    step that started at the last done() (or at construction)."""
+
+    def __init__(self, say=print):
+        self.say = say
+        self.t = time.perf_counter()
+
+    def done(self, label):
+        now = time.perf_counter()
+        self.say("step %s: %.3f s" % (label, now - self.t))
+        self.t = now
+
+
+def same_vk(a, b):
+    return all(getattr(a, k) == getattr(b, k) for k in (
+        "domain_size", "num_inputs", "selector_comms", "sigma_comms",
+        "k", "g2", "tau_g2"))
+
+
+# phases 11 (b)-(e) and 12 run in child processes beside phase 13 and the
+# daemon step: the whole child, set-up included, must end within this
+CHILD_LIMIT_S = 720
+CHILD_SEED = 20261018   # phase 11's seeded values in its child
+CHILD_CMD = [sys.executable, os.path.abspath(__file__), "--phase-child"]
+
+
+class PhaseChild:
+    """One phase in a child process (`chip_smoke.py --phase-child NAME
+    DIR`, its own session, its output to DIR/NAME.log). join() waits up to
+    CHILD_LIMIT_S from the start, prints the child's lines (each prefixed
+    with its name) and fails unless it exited 0 and wrote its result;
+    close() stops the child and every process it started (its session)
+    and prints its lines if join() did not."""
+
+    def __init__(self, name, inputs, workdir):
+        self.name = name
+        self.dir = os.path.join(workdir, name)
+        os.makedirs(self.dir)
+        self.log_path = os.path.join(self.dir, name + ".log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                CHILD_CMD + [name, inputs, self.dir], cwd=HERE, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        self.printed = False
+
+    def _print_log(self):
+        if self.printed:
+            return
+        self.printed = True
+        with open(self.log_path) as f:
+            for line in f:
+                sys.stdout.write("[%s] %s" % (self.name, line))
+        sys.stdout.flush()
+
+    def _stop(self):
+        """SIGTERM (the child's finally blocks stop its workers), then
+        SIGKILL to whatever of its session is left."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+
+    def join(self):
+        left = CHILD_LIMIT_S - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            rc = None
+        wall = time.perf_counter() - self.t0
+        self._stop()
+        self._print_log()
+        assert rc == 0, "the %s child %s after %.3f s" % (
+            self.name, "overran %d s" % CHILD_LIMIT_S if rc is None
+            else "exited %d" % rc, wall)
+        with open(os.path.join(self.dir, "result.json")) as f:
+            result = json.load(f)
+        print("the %s child: exit 0, %.3f s from its start (%.3f s of it "
+              "its own set-up)" % (self.name, wall, result["setup_s"]),
+              flush=True)
+        return result
+
+    def close(self):
+        self._stop()
+        self._print_log()
+
+
+def phase_child(name, inputs, workdir, device="cuda:0"):
+    """`python3 chip_smoke.py --phase-child NAME INPUTS DIR`: phase 11's
+    (b)-(e) (name "fleet") or phase 12 (name "elastic") on the parent's
+    v1 circuit, fixture bytes and vk (INPUTS, pickled), with the kernels
+    the parent built (no nvcc) and the v1 keys preprocessed here from the
+    device SRS (tau 0xDEADBEEF: the parent's vk, asserted). Writes
+    DIR/result.json ({"launches": ..., "setup_s": ...}); any failure
+    exits non-zero. SIGTERM exits through the finally blocks, which stop
+    the workers."""
+    from distributed_plonk_tpu_torch import kzg
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend.torch_backend import \
+        TorchBackend
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    t0 = time.perf_counter()
+    with open(inputs, "rb") as f:
+        inp = pickle.load(f)
+    ckt, golden, smi = inp["ckt"], inp["golden"], inp["smi"]
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.load()
+        assert not _build.build_seconds, "the child ran nvcc"
+    be = TorchBackend(device=dev)
+    srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF, device=dev)
+    pk, vk = kzg.preprocess(srs, ckt, be)
+    assert same_vk(vk, inp["vk"]), "the child's v1 vk"
+    setup_s = time.perf_counter() - t0
+    print("%s child: kernels loaded (%s), v1 keys preprocessed from the "
+          "device SRS in %.3f s" % (name, _build.report()["source"],
+                                    setup_s), flush=True)
+    if name == "fleet":
+        t = time.perf_counter()
+        srs2 = kzg.universal_setup_device(V2_POWERS - 1, tau=0xDEADBEEF,
+                                          device=dev)
+        ck2 = kzg.device_commit_key(srs2, V2_POWERS, dev)
+        print("v2's commit key (%d powers) from the device SRS: %.3f s"
+              % (V2_POWERS, time.perf_counter() - t), flush=True)
+        fleet_checks(ckt, pk, vk, golden, ck2, TorchBackend(device=dev),
+                     dev, random.Random(CHILD_SEED))
+        launches = {}
+    elif name == "elastic":
+        launches = elastic_checks(smi, ckt, pk, vk, golden, (be, pk, vk),
+                                  device=str(dev))
+    else:
+        raise ValueError("no phase child %r" % name)
+    with open(os.path.join(workdir, "result.json"), "w") as f:
+        json.dump({"launches": dict(launches), "setup_s": setup_s}, f)
+    print("%s child: %.3f s" % (name, time.perf_counter() - t0), flush=True)
+    return 0
+
+
 def phase(name):
     print("== phase: %s" % name, flush=True)
     return time.perf_counter()
@@ -2845,6 +3313,8 @@ def main(argv=None):
         return analysis_cpu_child(argv[1])
     if argv[:1] == ["--multihost-child"] and len(argv) == 5:
         return multihost_child(int(argv[1]), argv[2], argv[3], argv[4])
+    if argv[:1] == ["--phase-child"] and len(argv) == 4:
+        return phase_child(argv[1], argv[2], argv[3])
     if argv:
         print("usage: python3 chip_smoke.py (the check; needs one card)",
               file=sys.stderr)
@@ -2888,10 +3358,8 @@ def run_phases(cleanup):
                                                           lift, to_tensor)
     from distributed_plonk_tpu_torch.backend.torch_backend import \
         TorchBackend
-    from distributed_plonk_tpu_torch.backend.limbs import lower
-    from distributed_plonk_tpu_torch.runtime import native, protocol
-    from distributed_plonk_tpu_torch.runtime.dispatcher import (
-        RemoteBackend, _split_rc)
+    from distributed_plonk_tpu_torch.runtime import native
+    from distributed_plonk_tpu_torch.runtime.dispatcher import _split_rc
     from distributed_plonk_tpu_torch.runtime.torch_stages import \
         StageKernels
     from distributed_plonk_tpu_torch.runtime.worker import FftTask
@@ -3800,137 +4268,23 @@ def run_phases(cleanup):
                 co=coset: N.ntt_cuda(plan, whole, inv, co), 5)
             del outs, calls
 
-    workdir = tempfile.mkdtemp(prefix="dpt_fleet_")
+    # (b)-(e), the four workers, and phase 12 run in child processes
+    # (phase_child) beside phase 13 and the daemon step in this one: the
+    # three are host-bound (the fleets' round math, the service's
+    # interpreter lock) and each owns its processes, ports and launch
+    # counters; the card is time-shared by every worker anyway
     native.build_native()     # before the workers, which load it
-    t = time.perf_counter()
-    fleet = Fleet(4, workdir)
-    try:
-        counters = FleetCounters()
-        d = fleet.dispatcher(counters)
-        print("4 port workers up in %.3f s" % (time.perf_counter() - t))
-        for i, snap in enumerate(d.health()):
-            assert snap["backend"] == "torch" and \
-                snap["device"].startswith("cuda"), (i, snap)
-        print("HEALTH: every worker reports backend torch on %s"
-              % sorted({s["device"] for s in d.health()}))
-
-        # (b) the sharded 4-step FFT of one 2^21 vector, coset forward and
-        # coset inverse, against the single-card K2 on the same values
-        size = 1 << 21
-        plan = N.get_plan(size, dev)
-        values = [rng.randrange(R_MOD) for _ in range(size)]
-        h = lift(values, dev).reshape(8, 1, size)
-        for inverse in (False, True):
-            before = worker_launches(d)
-            t = time.perf_counter()
-            got = d.fft_dist(values, inverse=inverse, coset=True)
-            secs = time.perf_counter() - t
-            launch_delta(before, worker_launches(d),
-                         "fft_dist 2^21 coset inverse=%d" % inverse,
-                         ("mont_mul", "ntt"))
-            want = lower(N.ntt(plan, h, inverse, True)[:, 0])
-            assert got == want, ("fft_dist 2^21", inverse)
-            print("fft_dist 2^21 coset inverse=%d over 4 workers: %.3f s, "
-                  "equal to the single-card ntt" % (inverse, secs),
-                  flush=True)
-        del values, h, got, want
-        counters.check("fft_dist")
-
-        # (c) a fleet MSM over v2's commit key (2^18 + 3 powers padded to
-        # a multiple of 32), against the single-card commitment
-        rb = RemoteBackend(d)
-        t = time.perf_counter()
-        host_ck = rb._host_bases(pk2.ck)
-        print("v2 commit key to host affine points (%d): %.3f s"
-              % (len(host_ck), time.perf_counter() - t))
-        scalars = [rng.randrange(R_MOD) for _ in range(V2_POWERS)]
-        before = worker_launches(d)
-        t = time.perf_counter()
-        fleet_point = rb.commit(pk2.ck, scalars)
-        msm_s = time.perf_counter() - t
-        launch_delta(before, worker_launches(d), "the fleet msm",
-                     ("msm_digits", "bucket_sums", "msm_tail", "proj_add"))
-        t = time.perf_counter()
-        single = be2.commit_many_h(pk2.ck, [lift(scalars, dev)])[0]
-        single_s = time.perf_counter() - t
-        assert fleet_point == single, "fleet msm"
-        print("fleet msm over %d bases (4 ranges, keys built by the "
-              "workers): %.3f s; equal to TorchBackend.commit_many_h "
-              "(%.3f s warm)" % (len(host_ck), msm_s, single_s), flush=True)
-        del host_ck, scalars, rb
-        counters.check("fleet msm")
-
-        # (d) the v1 proof through the fleet: every NTT sharded
-        # (dist_fft_min = n), then whole NTTs round-robin
-        for label, fft_min in (("sharded", n), ("unsharded", None)):
-            dtr = Tracer(proc="dispatcher")
-            dd = fleet.dispatcher(counters, tracer=dtr)
-            be_f = RemoteBackend(dd, dist_fft_min=fft_min)
-            stats0 = dd.stats()
-            before = worker_launches(dd)
-            tr = Tracer()
-            t = time.perf_counter()
-            proof = prove(random.Random(1), ckt, pk, be_f, tracer=tr)
-            secs = time.perf_counter() - t
-            fleet_launches = launch_delta(
-                before, worker_launches(dd), "the %s fleet prove" % label,
-                BASE_KERNELS + ("proj_add",))
-            blob = proof_io.serialize_proof(proof)
-            assert blob == golden, "%s fleet proof bytes" % label
-            assert verify(vk, ckt.public_input(), proof,
-                          rng=random.Random(2))
-            served = [{protocol.tag_name(int(k)): v - s0.get(k, 0)
-                       for k, v in s1.items() if v - s0.get(k, 0)}
-                      for s0, s1 in zip(stats0, dd.stats())]
-            # every worker took its share of each offloaded kind of work
-            must = ("MSM", "EVAL") + (("FFT1", "FFT2") if fft_min
-                                      else ("NTT",))
-            idle = [(i, t) for i, sv in enumerate(served) for t in must
-                    if not sv.get(t)]
-            assert not idle, ("%s fleet prove: workers served none of"
-                              % label, idle, served)
-            merged = dd.collect_trace()
-            spans = collections.defaultdict(float)
-            for ev in merged["events"]:
-                if ev["proc"].startswith("worker"):
-                    spans[ev["span"]] += ev["dur_s"]
-            print("%s fleet prove: %.3f s, equal to the fixture, verifies"
-                  % (label, secs))
-            print("  rounds: " + json.dumps(
-                {k: round(v, 4) for k, v in tr.totals(0).items()}))
-            print("  worker span seconds (summed over workers): "
-                  + json.dumps({k: round(v, 3)
-                                for k, v in sorted(spans.items())}))
-            print("  requests served per worker: " + json.dumps(served))
-            kernels_per = {k: v for k, v in fleet_launches.items() if v}
-            print("  kernel launches per %s fleet prove: %s"
-                  % (label, json.dumps(kernels_per)), flush=True)
-            dd.pool.shutdown()
-            for w in dd.workers:
-                w.close()
-        counters.check("fleet proves")
-
-        # (e) the observability plane over the same workers: a third,
-        # sharded v1 prove with a PROFILE capture armed on worker 0, then a
-        # METRICS_FETCH scrape of all four and a LOG_FETCH
-        fleet_obs_checks(d, fleet, counters, ckt, pk, golden, n)
-        fleet.check_alive()
-        d.shutdown()
-    finally:
-        fleet.close()
-        shutil.rmtree(workdir, ignore_errors=True)
+    children_dir = tempfile.mkdtemp(prefix="dpt_children_")
+    cleanup.append(lambda: shutil.rmtree(children_dir, ignore_errors=True))
+    inputs = os.path.join(children_dir, "inputs.pkl")
+    with open(inputs, "wb") as f:
+        pickle.dump({"ckt": ckt, "golden": golden, "smi": smi, "vk": vk},
+                    f)
+    children = {}
+    for name in ("fleet", "elastic"):
+        children[name] = PhaseChild(name, inputs, children_dir)
+        cleanup.append(children[name].close)
     done("fleet", t0)
-
-    # --- 12. elastic: supervised workers joining through the membership
-    # plane, a proc kill healed, a liar replaced through the challenge,
-    # the service's autoscaler growing and shrinking the fleet
-    t0 = phase("elastic")
-    elastic_launches = elastic_checks(smi, ckt, pk, vk, golden, (be, pk, vk))
-    for name, rec in kernels.items():
-        rec["elastic_launches"] = elastic_launches[name]
-    gc.collect()
-    torch.cuda.empty_cache()
-    done("elastic", t0)
 
     # --- 13. service: the port's ProofService on this card over TCP, the
     # v1, rollup and v2 workloads through batch, pool and mesh placement,
@@ -3944,6 +4298,22 @@ def run_phases(cleanup):
     gc.collect()
     torch.cuda.empty_cache()
     done("service", t0)
+
+    # --- 13b. the daemon: python -m distributed_plonk_tpu_torch.service
+    # with the dry autoscaler, one v1 job over TCP, the console, SIGTERM
+    t0 = phase("daemon")
+    daemon_launches = daemon_checks(smi, (be, pk, vk))
+    for name, rec in kernels.items():
+        rec["daemon_launches"] = daemon_launches[name]
+    done("daemon", t0)
+
+    # --- 11 and 12, joined: the fleet and elastic children's lines, and
+    # the launches the elastic one counted over its workers' HEALTH
+    t0 = phase("fleet and elastic children")
+    results = {name: child.join() for name, child in children.items()}
+    for name, rec in kernels.items():
+        rec["elastic_launches"] = results["elastic"]["launches"].get(name, 0)
+    done("fleet and elastic children", t0)
 
     # --- 14. observe and calibrate: the kernel shares of the v1 and v2 warm
     # proves against this card's peak, then a kernel plan measured on a

@@ -5,18 +5,28 @@
         [--device cuda|cuda:1|cpu] [--devices cuda:0,cuda:0,...] \
         [--queue-depth 64] [--max-batch 8] [--retries 2] [--timeout 300] \
         [--obs-port 0] [--chaos [--faults SPEC]] [--verify] \
-        [--build-dir DIR]
+        [--build-dir DIR] [--autoscale 0|dry|1 [--slo-standard-s S]]
 
 The counterpart of the JAX package's scripts/serve.py, with its flags
-(minus the autoscaler) and the same wire protocol: clients drive it with
-either package's ServiceClient. --device is where keys build and pool
+and the same wire protocol: clients drive it with either package's
+ServiceClient. --device is where keys build and pool
 workers prove (default: the card; without one the daemon exits with an
 error unless --device cpu asks for the kernels' plain versions);
 --devices lists the slots mesh-class jobs lease (default: every card).
 On the card the kernels come from --build-dir (default: the checkout's
 build directory), else the store's `kbuild:` artifact, else the
 --store-peers, else nvcc; a service with a store publishes its build
-there (store/kernels.py), and METRICS says which under `build`.
+there (store/kernels.py), and METRICS says which under `build` (and
+this process's kernel launch counters under `launches`).
+
+--autoscale arms the closed-loop autoscaler (service/autoscale.py) once
+the service listens: 0 (the default) attaches nothing and /autoscale
+answers 404; dry runs the control loop every autoscale.TICK_S (2)
+seconds and records each decision without an actuator call; 1 actuates
+(lease resizes and pressure sheds: the daemon has no WorkerSupervisor,
+so worker scaling records as not applied). --slo-standard-s sets the standard
+class's p95 target, a breach signal for scaling up. The start line
+carries the mode under "autoscale".
 
 --journal-dir enables the crash-safe job journal: every submitted job
 survives a crash or restart (in-flight ones resume from their
@@ -38,6 +48,8 @@ import argparse
 import json
 import os
 import signal
+
+from . import autoscale as AS
 
 # seconds in-flight jobs get to finish on SIGTERM (the JAX package's
 # DPT_DRAIN_TIMEOUT_S default)
@@ -129,6 +141,12 @@ def parse_args(argv=None):
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--allow-remote-shutdown", action="store_true",
                     help="let any client's SHUTDOWN frame stop the daemon")
+    ap.add_argument("--autoscale", choices=AS.MODES, default="0",
+                    help="closed-loop autoscaler: 0 off, dry records "
+                         "decisions without acting, 1 actuates")
+    ap.add_argument("--slo-standard-s", type=float, default=None,
+                    help="the standard class's p95 target, seconds (a "
+                         "breach signal for the autoscaler)")
     return ap.parse_args(argv)
 
 
@@ -179,6 +197,10 @@ def main(argv=None):
     if args.obs_port is not None:
         obs = ObsServer(svc, host=args.host, port=args.obs_port).start()
 
+    # mode "0" constructs nothing (svc.autoscaler stays None)
+    autoscaler = svc.attach_autoscaler(
+        mode=args.autoscale, slo_p95_standard_s=args.slo_standard_s)
+
     drain_state = {}
 
     def _drain_handler(signum, _frame):
@@ -198,6 +220,7 @@ def main(argv=None):
                       "device": str(svc.device),
                       "store": args.store_dir, "journal": journal_dir,
                       "log_file": log_path, "autotune": svc.autotune,
+                      "autoscale": autoscaler.mode if autoscaler else "0",
                       "build": _build.report()}),
           flush=True)
     svc.serve_forever()

@@ -866,6 +866,9 @@ class ProofService:
             snap["gauges"]["queue_depth"] = self.queue.depth()
             snap["gauges"]["queue_high_water"] = self.queue.high_water
             snap["build"] = _build.report()
+            # this process's kernel launch counters (backend/_build.py),
+            # which a caller reads before and after a job
+            snap["launches"] = dict(_build.LAUNCHES)
             conn.send(protocol.OK, protocol.encode_json(snap))
         elif tag == protocol.KILL_WORKER:
             if not self.chaos:

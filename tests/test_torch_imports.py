@@ -225,7 +225,9 @@ def test_the_observability_and_calibration_modules_stand_alone(
 @pytest.mark.parametrize("name", ["torch_warmup.py", "torch_fleet.py",
                                   "torch_loadgen.py", "torch_autotune.py",
                                   "torch_warm_ab.py",
-                                  "torch_service_contention.py"])
+                                  "torch_service_contention.py",
+                                  "torch_fleet_baseline.py",
+                                  "torch_gen_proof_fixtures.py"])
 def test_the_port_scripts_stand_alone(name):
     """Every scripts/torch_*.py is among the scanned sources, imports
     nothing of jax or of the JAX package (its lazy imports inside
