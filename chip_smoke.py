@@ -21,7 +21,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    2^13 and 2^16 and is timed at round 3's batch of 25. The MSM entries
    (msm_digits, bucket_sums, msm_tail) run one round-1 commit batch, 5
    handles of width n + 2 over the commit key's window-shifted copy
-   (304,288 points), whose build time is printed with the sort's. Round
+   (304,288 points), whose build time is printed with the sort's; then
+   kernel 4's window finish (msm_finish) on the same batch over the
+   base layout of the key (one lane per handle and window: 5 x 37 lanes
+   of 64 buckets, the round-1 batch shape of v1 and v2), against
+   msm_finish_ref and, as points, against the shifted key's totals. Round
    3's folds (csrc/round3.cu: r3_gate_fold, r3_sigma_fold, r3_combine)
    against their plain versions on seeded words with the corners 0, 1
    and r - 1, at v1's shapes (13 selector planes, 5 sigma planes, the
@@ -38,7 +42,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    launched there, the MSM entries once per commit batch, the NTT at most
    3 launches per call, each round-3 fold once (the fused round 3: 13
    selectors and 5 sigmas in one batch each at m = 2^16), and the
-   elementwise add not at all.
+   elementwise add not at all. Then the same keys proved on
+   TorchBackend(msm_layout="base"), cold and warm: both proofs equal the
+   fixture; the warm prove launches msm_finish once per commit batch,
+   msm_tail never, and every other kernel as often as above.
 4. Device SRS: universal_setup_device(n + 2) (the fixed-base walk: 32
    mixed-add launches of kernel 4, then kernel 1) equals the host SRS of
    phase 1 power for power; the workload preprocessed from it has the
@@ -69,7 +76,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    and the one-shot round 3 (all four identical, round 3's peak memory
    fused no higher than streamed), verify, per-round spans and peak
    device memory; five pairs of warm proves, fused and streamed in ABBA
-   order (r3_ab).
+   order (r3_ab); a round-1 batch of 5 handles over the base layout of
+   v2's device key, equal to the shifted key's commitments.
+8b. Scale scripts (scale_script_checks): scripts/torch_scale_run.py's
+   function on v1 (device SRS, preprocess, cold and warm prove, verify)
+   and scripts/torch_kernel_bench.py's at 2^16 (the mont_mul chains, the
+   NTT, the MSM over 2^11 tiled bases on both key layouts: the same
+   point, each meeting the tiling identity), the launch counters read
+   around each.
 9. Mesh, four shards on this card (make_mesh(4): one process, every
    shard's kernels on the card): dryrun_multichip(4) (a mesh iNTT and
    coset NTT, an MSM and a tiny prove against their oracles, the prove
@@ -245,9 +259,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    broadcast and strided, to_mont, from_mont, poly_eval), kernel 2 (all
    four modes in 1-3 passes), kernel 3's msm_digits, and one main-path
    shape each (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
-   msm_digits over a round-1 batch of 5 handles of width n + 2), and round
-   3's three folds at 8 and at 2^12 lanes; the six must launch. Each
-   kernel record gains `analysis_entries`.
+   msm_digits over a round-1 batch of 5 handles of width n + 2), round
+   3's three folds at 8 and at 2^12 lanes, and kernel 4's msm_finish at 2
+   windows of c = 1 and over a round-1 batch on the base layout; the
+   seven must launch. Each kernel record gains `analysis_entries`.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -1454,6 +1469,44 @@ def mesh_scale_checks(ckt, dev, mesh_runs, log2n=21, device=None):
           % (secs, json.dumps(res)), flush=True)
 
 
+def scale_script_checks(dev, device=None, sizes=None, height=32, proofs=1):
+    """Phase 8b's runs of the reference-scale runners' functions on this
+    card: scripts/torch_scale_run.py on v1 (height 32, one proof: the
+    device SRS, preprocess, a cold and a warm prove, verify), and
+    scripts/torch_kernel_bench.py's modes at 2^16 (the mont_mul chains,
+    the NTT, the MSM on both key layouts: the same point, each meeting
+    the tiling identity). The launch counters are zeroed before each and
+    read after. (device="cpu", a small height, proofs 0 and small sizes
+    rehearse it on the plain versions.)"""
+    from distributed_plonk_tpu_torch.backend import _build
+    scale = load_script("torch_scale_run")
+    bench = load_script("torch_kernel_bench")
+    device = dev if device is None else torch.device(device)
+    _build.reset_launches()
+    t = time.perf_counter()
+    res = scale.scale_run(height, proofs, device)
+    secs = time.perf_counter() - t
+    read_launches("scripts/torch_scale_run.py on v1",
+                  PATH_KERNELS + ("proj_add", "proj_add_mixed"))
+    assert res["verified"] is True, res
+    res.pop("trace")
+    print("scripts/torch_scale_run.py (height %d, %d proof(s)) in %.3f s: "
+          "%s" % (height, proofs, secs, json.dumps(res)), flush=True)
+    sizes = sizes or {"fr": 16, "fq": 16, "ntt": 16, "msm": (16, 16)}
+    _build.reset_launches()
+    t = time.perf_counter()
+    out = bench.kernel_bench("all", device, sizes)
+    secs = time.perf_counter() - t
+    read_launches("scripts/torch_kernel_bench.py at 2^16", (
+        "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
+        "msm_finish", "proj_add", "proj_add_mixed"))
+    msm = out["msm_2p%d" % sizes["msm"][1]]
+    assert msm["same_point"] and msm["shifted"]["tiling_identity"] \
+        and msm["base"]["tiling_identity"], msm
+    print("scripts/torch_kernel_bench.py (all, 2^16) in %.3f s: %s"
+          % (secs, json.dumps(out)), flush=True)
+
+
 ZOO_KINDS = (("range", {"bits": 8, "count": 2}), ("preimage", {"count": 1}))
 
 
@@ -1555,7 +1608,7 @@ def analysis_cpu_child(out_path):
 
 
 ANALYSIS_KERNELS = ("mont_mul", "ntt", "msm_digits", "r3_gate_fold",
-                    "r3_sigma_fold", "r3_combine")
+                    "r3_sigma_fold", "r3_combine", "msm_finish")
 
 
 def analysis_checks(smi, child, out_path, log_path, kernels):
@@ -1565,10 +1618,11 @@ def analysis_checks(smi, child, out_path, log_path, kernels):
     registry entry that has a kernel (kernel 1 on Fr and Fq, broadcast
     and strided, and through to_mont, from_mont and poly_eval; kernel 2
     in all four modes in 1-3 passes; kernel 3's msm_digits; round 3's
-    three folds at 8 lanes) and the shapes of registry.card_entries()
-    (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
-    msm_digits over a v1 round-1 batch, the folds at 2^12 lanes) to their
-    value contracts on the card, with the launch
+    three folds at 8 lanes; kernel 4's msm_finish at 2 windows) and the
+    shapes of registry.card_entries() (kernel 1 at 2^16 lanes, kernel 2
+    at n = 2^13 in each mode, msm_digits over a v1 round-1 batch, the
+    folds at 2^12 lanes, msm_finish over a round-1 batch on the base
+    layout) to their value contracts on the card, with the launch
     counters zeroed before and read after. Sets each kernel record's
     `analysis_entries`: the value entries held on the card."""
     from distributed_plonk_tpu_torch.analysis import registry as AR
@@ -3485,11 +3539,13 @@ def run_phases(cleanup):
                                        for _ in range(count - 3)]
         return to_tensor(ints_to_words(vals, spec.n_words), dev)
 
-    def plain_ms(fn):
+    def plain_ms(fn, warm=True):
         """(output, milliseconds) of one call of a plain version, timed
         with CUDA events, after an untimed call (the first use of each
-        torch kernel loads it)."""
-        fn()
+        torch kernel loads it) unless warm is False (its torch kernels
+        ran already)."""
+        if warm:
+            fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3733,6 +3789,37 @@ def run_phases(cleanup):
            launch_ms(tail, 20), pms, 3 * 48 * B * (nb + 1),
            tail_adds * 12 * FQ_MUL_IMADS,
            "(12, %d, %d) -> (12, %d)" % (B, nb, B))
+    tail_out = got
+
+    # K4's window finish: the same batch over the base layout of the key
+    # (its 8,224 points, one lane per (handle, window): the round-1 batch
+    # shape of v1 and v2, 5 handles x 37 windows x 64 buckets), its bucket
+    # sums through msm_finish, equal to msm_finish_ref and, as points, to
+    # the shifted key's totals. The plain version (about 320 dependent
+    # plain adds on the card) runs once: msm_tail_ref loaded its kernels
+    base_ctx = M.MsmContext(ck, dev, layout="base")
+    fin_args = tuple(p.contiguous() for p in base_ctx.bucket_planes(hv)) \
+        + (base_ctx.windows, base_ctx.c, base_ctx.signed)
+
+    def finish(args=fin_args):
+        return M.msm_finish_cuda(*args)
+
+    got = finish()
+    want, pms = plain_ms(lambda: M.msm_finish_ref(*fin_args), warm=False)
+    err = max_abs_err(got, want)
+    assert CT.proj_to_affine(got) == CT.proj_to_affine(tail_out), \
+        "the base layout's totals differ from the shifted key's"
+    runs["msm_finish"] = (finish, 5)
+    fin_w, fin_c = base_ctx.windows, base_ctx.c
+    record("msm_finish", "distributed_plonk_tpu_torch/csrc/msm_finish.cu",
+           "distributed_plonk_tpu/backend/curve_pallas.py:289", err,
+           launch_ms(finish, 5), pms, 3 * 48 * B * (fin_w * nb + 1),
+           (tail_adds * fin_w + B * (fin_w - 1) * (fin_c + 1)) * 12
+           * FQ_MUL_IMADS,
+           "(12, %d, %d) -> (12, %d)" % (B * fin_w, nb, B))
+    print("msm_finish: %d handles' totals over the base layout equal the "
+          "shifted key's msm_tail totals as points" % B, flush=True)
+    del base_ctx, want
 
     # K4 elementwise: P + P on the key's bases (the key build's launch,
     # 8,224 lanes), and full and mixed adds at a wide batch
@@ -3862,6 +3949,38 @@ def run_phases(cleanup):
           + "; ntt calls %d" % ntt_calls)
     print("peak device memory %.1f MiB"
           % (torch.cuda.max_memory_allocated() / 2**20))
+
+    # the same keys with the commit key on the base layout (kernel 4's
+    # msm_finish in place of msm_tail): a cold prove (the base context's
+    # build) and a warm one, both the fixture; the warm one launches
+    # msm_finish once per commit batch, msm_tail never, and every other
+    # kernel as often as the shifted key's warm prove
+    be_base = TorchBackend(msm_layout="base")
+    t = time.perf_counter()
+    proof = prove(random.Random(1), ckt, pk, be_base)
+    torch.cuda.synchronize()
+    base_cold_s = time.perf_counter() - t
+    assert proof_io.serialize_proof(proof) == golden, "base-layout cold"
+    _build.reset_launches()
+    t = time.perf_counter()
+    proof = prove(random.Random(1), ckt, pk, be_base)
+    torch.cuda.synchronize()
+    base_warm_s = time.perf_counter() - t
+    base_launches = read_launches(
+        "the warm v1 prove on the base layout",
+        tuple(k for k in PATH_KERNELS if k != "msm_tail") + ("msm_finish",))
+    assert proof_io.serialize_proof(proof) == golden, "base-layout warm"
+    assert base_launches["msm_finish"] == batches, base_launches
+    assert base_launches["msm_tail"] == 0, base_launches
+    for name in PATH_KERNELS:
+        if name != "msm_tail":
+            assert base_launches[name] == launches[name], (name,
+                                                           base_launches)
+    kernels["msm_finish"]["launches"] = base_launches["msm_finish"]
+    kernels["msm_finish"]["launches_in"] = "warm prove, base layout"
+    print("v1 on the base layout: cold prove %.3f s, warm prove %.3f s, "
+          "both equal to the fixture" % (base_cold_s, base_warm_s))
+    del be_base
     done("prove", t0)
 
     # --- 4. device SRS: the fixed-base walk (kernel 4's mixed add, kernel
@@ -4121,7 +4240,33 @@ def run_phases(cleanup):
     print("v2 proofs identical (cold, warm fused, streamed and one-shot "
           "round 3); verify ok in %.3f s" % (time.perf_counter() - t))
     del proof2
+    # v2's round-1 batch (5 handles of width n + 2) over the base layout
+    # of its device key equals the shifted key's commitments
+    t = time.perf_counter()
+    base2 = M.MsmContext(pk2.ck, dev, layout="base")
+    sync()
+    base2_key_s = time.perf_counter() - t
+    words2 = seeded_words(dev, rng, 5, n2 + 2)
+    hs2 = [words2[:, i] for i in range(5)]
+    _build.reset_launches()
+    t = time.perf_counter()
+    got2 = base2.msm_mont_limbs_many(hs2)
+    base2_s = time.perf_counter() - t
+    read_launches("v2's round-1 batch on the base layout",
+                  ("msm_digits", "bucket_sums", "msm_finish"))
+    assert got2 == be2.commit_many_h(pk2.ck, hs2), "v2 base layout"
+    print("v2 round-1 batch on the base layout (%d points, context %.3f "
+          "s): %.3f s, equal to the shifted key's commitments"
+          % (base2.n, base2_key_s, base2_s), flush=True)
+    del base2, words2, hs2, got2
     done("v2", t0)
+
+    # --- 8b. the reference-scale runners: scripts/torch_scale_run.py on v1
+    # and scripts/torch_kernel_bench.py at 2^16, their functions in this
+    # process
+    t0 = phase("scale scripts")
+    scale_script_checks(dev)
+    done("scale scripts", t0)
 
     # --- 9. mesh: MeshBackend over four shards of this card (one process,
     # every shard's kernels on the card): the dry run, the mesh NTT and
@@ -4364,7 +4509,7 @@ def run_phases(cleanup):
     assert all(kernels[k]["v2"]["ms"] is not None for k in R3_KERNELS)
     print(json.dumps({"kernels": [kernels[k] for k in (
         "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
-        "proj_add", "proj_add_mixed") + R3_KERNELS]}))
+        "msm_finish", "proj_add", "proj_add_mixed") + R3_KERNELS]}))
     # count: the cards this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,10 @@ the kernel's output to the same contract on the same samples. Families:
 - ntt/: `ntt_ref` in all four (inverse, coset) modes at log n = 5 and 6,
   one mode in 2 and 3 passes, a batch of 3 (card: kernel 2);
 - msm/: the digit recodes at the prover's widths n + 2 and n + 3,
-  `msm_digits_ref` signed and unsigned (card: kernel 3's msm_digits), and
+  `msm_digits_ref` signed and unsigned (card: kernel 3's msm_digits),
   `bucket_sums_ref` / `msm_tail_ref` (bounds only, as the JAX package's
-  bucket and finish entries are);
+  bucket and finish entries are), and the base layout's window finish
+  `msm_finish_ref` (card: kernel 4's msm_finish);
 - curve/: `proj_add_ref`, `proj_add_mixed_ref` (bounds only);
 - eval/: `poly_eval` / `poly_eval_many` (card: kernel 1);
 - r3/: round 3's folds, `gate_fold_ref` (all 13 selectors, and a batch
@@ -23,8 +24,9 @@ the kernel's output to the same contract on the same samples. Families:
 
 `card_entries()` adds one main-path shape per kernel for the card half
 alone: kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode, kernel
-3's msm_digits over a round-1 batch of 5 handles of width n + 2, and the
-three round-3 folds at 2^12 lanes (16 blocks).
+3's msm_digits over a round-1 batch of 5 handles of width n + 2, the
+three round-3 folds at 2^12 lanes (16 blocks), and msm_finish over a
+round-1 batch of 5 handles on the base layout (37 windows, 64 buckets).
 
 Shapes are representative, not production-sized: every interval rule is
 width-generic, and the loops of the plain versions repeat one step on the
@@ -406,6 +408,59 @@ def _msm_digits_value(B_, n, c, signed, shifted, width=None, inf_lanes=(),
     return ValueObligation(sampler, contract, samples=samples)
 
 
+def _finish_value(B_, W, c, signed, samples=1):
+    """msm_finish's totals are sum_w 2^(c w) sum_j weight(j) S_(b, w, j)
+    per handle b, weight j + 1 signed and j unsigned: the bucket sums are
+    sampled as multiples k G of the generator (k in 0..count, k = 0 the
+    identity), in projective coordinates with random Z, so each handle's
+    total is the multiple sum_w 2^(c w) sum_j weight(j) k_(b, w, j) of G."""
+    from .. import curve as C
+    from ..constants import FQ_MONT_R, Q_MOD, R_MOD
+    nb = 1 << (c - 1) if signed else 1 << c
+    count = B_ * W * nb
+    table = [None, C.G1_GEN]        # k G, k = 0..count, made at first use
+
+    def sampler(rng):
+        while len(table) <= count:
+            table.append(C.g1_add_affine(table[-1], C.G1_GEN))
+        ks = rng.integers(1, count + 1, size=count)
+        ks[rng.random(count) < 0.1] = 0
+        cols = ([], [], [])
+        for k in ks:
+            p = table[int(k)]
+            z = int(rng.integers(1, 1 << 62))
+            xyz = (0, 1, 0) if p is None else (
+                p[0] * z % Q_MOD, p[1] * z % Q_MOD, z)
+            for col, v in zip(cols, xyz):
+                col.append(v * FQ_MONT_R % Q_MOD)
+        planes = tuple(torch.from_numpy(np.array(
+            [[(v >> (32 * i)) & U32 for v in col] for i in range(12)],
+            dtype=np.int64).astype(np.uint32).view(np.int32)).reshape(
+                12, B_ * W, nb) for col in cols)
+        return planes + (torch.from_numpy(ks.reshape(B_, W, nb)),)
+
+    def contract(args, outs):
+        ks = args[3].numpy()
+        weight = np.arange(nb) + (1 if signed else 0)
+        rinv = pow(FQ_MONT_R, -1, Q_MOD)
+        X, Y, Z = (V.elementwise(lambda v: int(v) * rinv % Q_MOD,
+                                 V.word_value(o)) for o in outs[:3])
+        errs = []
+        for b in range(B_):
+            k = sum(int((weight * ks[b, w]).sum()) << (c * w)
+                    for w in range(W)) % R_MOD
+            want = C.g1_mul(C.G1_GEN, k) if k else None
+            z = int(Z[b])
+            got = None if z == 0 else (
+                int(X[b]) * pow(z, -1, Q_MOD) % Q_MOD,
+                int(Y[b]) * pow(z, -1, Q_MOD) % Q_MOD)
+            if got != want:
+                errs.append("handle %d: the total is not sum_w 2^(%d w) "
+                            "sum_j weight(j) k_(w, j) G" % (b, c))
+        return errs
+    return ValueObligation(sampler, contract, samples=samples)
+
+
 def _eval_value(Lc, batch=None, fn=None):
     """value(out) == sum_i c_i z^i in raw-value terms: coefficients and
     point arrive in Montgomery form (c_i = v_i R^-1, z = vz R^-1);
@@ -632,6 +687,20 @@ def _msm_entries():
             "msm/tail_%s_nb%d" % ("signed" if signed else "unsigned", nb),
             lambda bx, by, bz, s=signed: M.msm_tail_ref(bx, by, bz, s),
             (word_rows(12, 2, nb),) * 3, [I32] * 3))
+    # the base layout's window finish (card: kernel 4's msm_finish). Cut
+    # to size: 2 windows of c = 1 (2 buckets) and one handle, the least
+    # that runs the tail, a doubling and the Horner's add (production
+    # repeats the same adds: 37 windows of c = 7); the value sampler adds
+    # the multiples k the sums encode as a fourth argument
+    out.append(Entry(
+        "msm/finish_unsigned_c1_W2",
+        lambda bx, by, bz, ks=None: M.msm_finish_ref(bx, by, bz, 2, 1,
+                                                     False),
+        (word_rows(12, 2, 2),) * 3, [I32] * 3,
+        value=_finish_value(1, 2, 1, False),
+        kernel=lambda bx, by, bz, ks=None: M.msm_finish_cuda(
+            bx, by, bz, 2, 1, False),
+        launches="msm_finish"))
     return out
 
 
@@ -891,7 +960,8 @@ def card_entries():
     """Main-path shapes held on the card only (too large for the exact
     host pass): kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
     kernel 3's msm_digits over the v1 round-1 batch (5 handles of width
-    n + 2 on the key's n + 3 points)."""
+    n + 2 on the key's n + 3 points), the round-3 folds, and kernel 4's
+    msm_finish over a round-1 batch on the base layout."""
     from ..backend import field_torch as F
     from ..backend import msm_torch as M
 
@@ -918,6 +988,13 @@ def card_entries():
         value=_msm_digits_value(5, n + 3, 7, True, True, n + 2),
         kernel=lambda v, inf: M.msm_digits_cuda(v, inf, 7, True, True),
         launches="msm_digits", card_only=True))
+    # the base layout's window finish over a round-1 batch of 5 handles
+    out.append(Entry(
+        "msm/msm_finish_signed_c7_B5_main", None, (),
+        value=_finish_value(5, M.W7, 7, True),
+        kernel=lambda bx, by, bz, ks: M.msm_finish_cuda(bx, by, bz, M.W7,
+                                                        7, True),
+        launches="msm_finish", card_only=True))
     # round 3's folds over 16 blocks of lanes: all 13 selectors in one
     # launch (v1's batch), the 5 sigmas, the combine
     lanes = R3_CARD_LANES

@@ -54,8 +54,9 @@ SOURCES = {
     "msm": "msm_bucket.cu",
     "curve": "curve_add.cu",
     "round3": "round3.cu",
+    "finish": "msm_finish.cu",
 }
-HEADERS = ("field.cuh", "curve.cuh")
+HEADERS = ("field.cuh", "curve.cuh", "msm_tail.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,6 +81,8 @@ SIGNATURES = {
                "dpt_r3_sigma_fold": (_V, _L, _V, _L, _V, _L, _L, _V, _L,
                                      _L, _I, _I, _L, _V, _V),
                "dpt_r3_combine": (_V, _V, _L, _L, _V, _V, _L, _V, _V)},
+    "finish": {"dpt_msm_finish": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _I,
+                                   _I, _I, _I, _I, _I, _I, _V)},
 }
 
 _lock = threading.Lock()
@@ -101,13 +104,16 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 # where it launches its kernel (the NTT counts every pass it launches;
 # proj_add counts the full add and proj_add_mixed the mixed add of the same
 # kernel; bucket_sums counts one per call, which launches its chunk and
-# tree kernels; each round-3 fold counts its one launch). CALLS counts the entry calls of the NTT, which launches
+# tree kernels; each round-3 fold counts its one launch; msm_finish counts
+# one per call, which launches its window-sum and Horner kernels). CALLS
+# counts the entry calls of the NTT, which launches
 # one kernel per pass. The service's pool threads launch concurrently, so
 # every increment goes through count() under a lock (a bare `+= 1` on a
 # dict entry can lose an update when two threads interleave).
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
             "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0,
-            "r3_gate_fold": 0, "r3_sigma_fold": 0, "r3_combine": 0}
+            "r3_gate_fold": 0, "r3_sigma_fold": 0, "r3_combine": 0,
+            "msm_finish": 0}
 CALLS = {"ntt": 0}
 _count_lock = threading.Lock()
 

@@ -1,12 +1,25 @@
 """Variable-base MSM on word tensors: the port of backend/msm_jax.py.
 
-Pippenger over a window-shifted commit key. A commitment is
-sum_j s_j P_j = sum_w sum_j d_wj (2^(c*w) P_j); the key is fixed across
-proofs, so `MsmContext` builds the W shifted copies of its n bases once
-(c * (W - 1) doublings on all n points, kernel 4's elementwise add, then
-one batch inversion to affine) and stores them point-major, one 96-byte
-row per point. An MSM is then ONE bucket accumulation over W * n points
-with one lane per handle, and no Horner over windows is left:
+Pippenger over the commit key in one of two layouts (`MsmContext`'s
+`layout`; "auto" picks by `shifted_build_bytes`):
+
+  - shifted (the default up to SHIFTED_BUILD_MAX_BYTES): a commitment is
+    sum_j s_j P_j = sum_w sum_j d_wj (2^(c*w) P_j); the key is fixed across
+    proofs, so the context builds the W shifted copies of its n bases once
+    (c * (W - 1) doublings on all n points, kernel 4's elementwise add,
+    then one batch inversion to affine) and stores them point-major, one
+    96-byte row per point. An MSM is then ONE bucket accumulation over
+    W * n points with one lane per handle, and no Horner over windows is
+    left;
+  - base (keys whose shifted build would not fit the card, msm_jax's
+    un-shifted pipeline): only the n affine bases, one lane per (handle,
+    window), then the window finish (kernel 4's msm_finish: the weighted
+    bucket sums and the Horner acc = 2^c acc + T_w over the windows).
+    Batches and point ranges are cut so that no launch sequence passes
+    ELEMS_MAX elements or LAUNCH_BYTES_MAX bytes (`launch_cut`); the
+    planes of a point range's launches merge by kernel 4's proj_add.
+
+Windows:
 
   - keys of >= 256 points: SIGNED c = 7 digits (37 windows, 64 buckets;
     digit d in [-64, 63], bucket |d| - 1, sign on y);
@@ -26,7 +39,9 @@ run the plain version):
      runtime argument: resolve_chunk, default CHUNK), then a pairwise tree
      of the chunk partials per bucket.
   4. `msm_tail` (kernel 4, csrc/curve_add.cu): sum_i weight(i) * S_i per
-     handle in one launch, by segment running sums.
+     handle in one launch, by segment running sums; on the base layout
+     `msm_finish` (kernel 4, csrc/msm_finish.cu): the same per (handle,
+     window) lane, then the Horner over the windows.
 
 The TPU walked its points in a sequential grid with bucket planes in VMEM;
 the card has no sequential grid, and one thread walking a group of points
@@ -58,6 +73,34 @@ NEG_BIT = 8             # op word: bits [0, 8) bucket, bit 8 negate y,
 SKIP_BIT = 9            # bit 9 skip (msm_pallas's encoding)
 CHUNK = 32              # sorted points per bucket_sums thread
 TAIL_SEGMENTS = 8       # msm_tail's segments per handle (at most)
+LAYOUTS = ("shifted", "base")
+# bucket_sums' sorted order holds int32 element indices e = lane * P +
+# point (csrc/msm_bucket.cu), so no launch sequence holds more elements
+ELEMS_MAX = (1 << 31) - 1
+# device bytes of one launch sequence per (lane, point) element: the op
+# word and sort key (8), torch.sort's sorted keys, int64 order and its
+# radix double buffers (about 24), the int32 order (4) and the chunk
+# partials (144 bytes per CHUNK elements, 4.5); a 2^24-point base-layout
+# MSM of one handle peaked at 41 bytes an element above its key and
+# scalars on the H100 (26,312.7 MiB in all, scripts/torch_kernel_bench.py
+# msm24)
+LAUNCH_BYTES_PER_ELEM = 48
+# the bytes one launch sequence may take: 32 GiB of the 80 GB card holds a
+# 2^24-point base-layout MSM of one handle (37 x 2^24 elements) in one
+# sequence beside its key (1.6 GB) and scalars; a larger batch or key is
+# cut into handle batches, then point ranges (launch_cut)
+LAUNCH_BYTES_MAX = 32 << 30
+# the shifted key's build peak per shifted point (window x base): the W
+# projective planes and their concatenation, batch_to_affine's prefix and
+# suffix products and the point-major copy. Measured at 2^20 bases on the
+# H100: 30,668.5 MiB over 37 x 2^20 shifted points, 829 bytes a point
+# (scripts/torch_kernel_bench.py msm, msm_2p20's key_peak_mib)
+SHIFTED_BUILD_BYTES_PER_POINT = 832
+# the shifted layout is built while its build's peak stays within half of
+# the 80 GB card, the other half left to the prove that uses the key: the
+# keys of v1 (2^13), v2 (2^18) and the 2^20 circuit (32.3 GB) are shifted;
+# 2^21 bases (64.5 GB) and more take the base layout
+SHIFTED_BUILD_MAX_BYTES = 40 * 10**9
 
 
 def resolve_chunk(chunk, n):
@@ -339,7 +382,19 @@ def bucket_sums_cuda(key, ops, keys, n_lanes, n_buckets, chunk=None):
     return out
 
 
+def check_elems(n_lanes, points):
+    """Raise unless n_lanes x points (lane, point) elements fit
+    bucket_sums' int32 element indices (ELEMS_MAX): a launch sequence past
+    it would wrap. Checks sizes only, before anything is allocated."""
+    if n_lanes * points > ELEMS_MAX:
+        raise ValueError("bucket_sums: %d lanes x %d points = %d elements "
+                         "> %d (int32 element indices); cut the batch or "
+                         "the points (launch_cut)"
+                         % (n_lanes, points, n_lanes * points, ELEMS_MAX))
+
+
 def bucket_sums(key, ops, keys, n_lanes, n_buckets, chunk=None):
+    check_elems(n_lanes, key.shape[0])
     if key.device.type == "cpu":
         return bucket_sums_ref(key, ops, keys, n_lanes, n_buckets, chunk)
     return bucket_sums_cuda(key, ops.contiguous(), keys.contiguous(),
@@ -423,6 +478,68 @@ def msm_tail(bx, by, bz, signed):
                          signed)
 
 
+# --- kernel 4: the base layout's window finish -------------------------------
+
+def msm_finish_ref(bx, by, bz, windows, c, signed):
+    """Plain version of msm_finish: ((12, B * W, nb),)*3 bucket sums, lane
+    b * W + w, -> ((12, B),)*3 totals sum_w 2^(c*w) T_(b, w), where T is
+    msm_tail_ref's weighted sum of each lane; in the kernel's order: acc =
+    T_(b, W-1), then for w = W-2 down to 0, c doublings and acc += T_(b, w)
+    (msm_jax.finish's weighting, as a Horner)."""
+    lanes = bz.shape[1]
+    if lanes % windows:
+        raise ValueError("msm_finish: %d lanes are not handles x %d windows"
+                         % (lanes, windows))
+    B = lanes // windows
+    t = tuple(v.reshape(FQ_WORDS, B, windows)
+              for v in msm_tail_ref(bx, by, bz, signed))
+    acc = tuple(v[..., windows - 1] for v in t)
+    for w in range(windows - 2, -1, -1):
+        for _ in range(c):
+            acc = CT.proj_add_ref(acc, acc)
+        acc = CT.proj_add_ref(acc, tuple(v[..., w] for v in t))
+    return acc
+
+
+def msm_finish_cuda(bx, by, bz, windows, c, signed):
+    """Kernel 4's window-finish launch (see msm_finish_ref): the weighted
+    sum of each (handle, window) lane, then one Horner thread per
+    handle."""
+    CT._check_point((bx, by, bz), tuple(bz.shape), bz.device, "msm_finish")
+    if bz.dim() != 3 or bz.device.type != "cuda":
+        raise ValueError("msm_finish: expected (12, B * W, nb) CUDA bucket "
+                         "sums")
+    lanes, nb = bz.shape[1:]
+    S, L = tail_shape(nb)
+    if nb & (nb - 1) or S < 2:
+        raise ValueError("msm_finish: nb must be a power of two >= 2")
+    if windows < 1 or c < 1 or lanes % windows:
+        raise ValueError("msm_finish: %d lanes are not handles x %d windows"
+                         % (lanes, windows))
+    B = lanes // windows
+    sums = tuple(torch.empty((FQ_WORDS, lanes), dtype=torch.int32,
+                             device=bz.device) for _ in range(3))
+    out = tuple(torch.empty((FQ_WORDS, B), dtype=torch.int32,
+                            device=bz.device) for _ in range(3))
+    lib = _build.load()["finish"]
+    with torch.cuda.device(bz.device):
+        rc = lib.dpt_msm_finish(
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            sums[0].data_ptr(), sums[1].data_ptr(), sums[2].data_ptr(),
+            bx.data_ptr(), by.data_ptr(), bz.data_ptr(), B, windows, c, nb,
+            S, L, int(signed), F._stream(bz))
+    _build.check(rc, "msm_finish")
+    _build.count("msm_finish")
+    return out
+
+
+def msm_finish(bx, by, bz, windows, c, signed):
+    if bz.device.type == "cpu":
+        return msm_finish_ref(bx, by, bz, windows, c, signed)
+    return msm_finish_cuda(bx.contiguous(), by.contiguous(),
+                           bz.contiguous(), windows, c, signed)
+
+
 # --- contexts ---------------------------------------------------------------
 
 def points_to_device(bases_affine, pad, device):
@@ -472,12 +589,53 @@ def shifted_key(x, y, inf, c, windows):
     return point_major(ax, ay)
 
 
+def shifted_build_bytes(n, windows):
+    """The shifted key's build peak for an n-point key of `windows`
+    windows, in bytes (SHIFTED_BUILD_BYTES_PER_POINT per shifted point)."""
+    return SHIFTED_BUILD_BYTES_PER_POINT * windows * n
+
+
+def resolve_layout(layout, n):
+    """"shifted" or "base" for an n-point key: `layout` itself, or for
+    "auto" shifted while its build's peak stays within
+    SHIFTED_BUILD_MAX_BYTES."""
+    if layout == "auto":
+        windows = window_of(n)[2]
+        return "shifted" if shifted_build_bytes(n, windows) \
+            <= SHIFTED_BUILD_MAX_BYTES else "base"
+    if layout not in LAYOUTS:
+        raise ValueError("MSM layout %r: expected auto, shifted or base"
+                         % (layout,))
+    return layout
+
+
+def launch_cut(handles, lanes, points, point_chunk=None):
+    """(handles per launch sequence, points per launch) for a commit batch
+    of `handles` handles of `lanes` lanes each over a key of `points`
+    points: as many handles as BATCH_CHUNK, ELEMS_MAX and LAUNCH_BYTES_MAX
+    allow (at least one), over all points while one handle's lanes fit
+    those limits, else over ranges of the points that do (point_chunk
+    forces the range). Raises, before anything is allocated, where even
+    one handle over one range would pass ELEMS_MAX."""
+    cap = min(ELEMS_MAX, LAUNCH_BYTES_MAX // LAUNCH_BYTES_PER_ELEM)
+    if point_chunk is None:
+        point_chunk = points if lanes * points <= cap else cap // lanes
+    point_chunk = min(point_chunk, points)
+    if point_chunk < 1:
+        raise ValueError("launch_cut: %d lanes a handle leave no point "
+                         "range under %d elements" % (lanes, cap))
+    check_elems(lanes, point_chunk)
+    per = lanes * point_chunk
+    return (max(1, min(handles, MsmContext.BATCH_CHUNK, cap // per)),
+            point_chunk)
+
+
 class DeviceCommitKey:
     """A commit key held on device as Jacobian (12, n) Montgomery tensors;
     identity padding columns (z == 0) are part of the key. The key carries
-    its MsmContext per device, built once: every backend on that device
-    (a service's key build and its pool workers) commits through the one
-    window-shifted copy, which is read-only after its build."""
+    its MsmContext per (device, layout), built once: every backend on that
+    device (a service's key build and its pool workers) commits through the
+    one key copy, which is read-only after its build."""
 
     def __init__(self, px, py, pz):
         assert px.shape == py.shape == pz.shape == (FQ_WORDS, px.shape[1])
@@ -488,60 +646,82 @@ class DeviceCommitKey:
     def __len__(self):
         return self.point[0].shape[1]
 
-    def context(self, device):
-        """The MsmContext of this key on `device` (built on first use,
-        under the key's lock), at the chunk resolve_chunk gives now: a
-        reloaded kernel plan gets a view at its chunk, sharing the one
-        window-shifted key."""
+    def context(self, device, layout="auto"):
+        """The MsmContext of this key on `device` in `layout` (built on
+        first use, under the key's lock), at the chunk resolve_chunk gives
+        now: a reloaded kernel plan gets a view at its chunk, sharing the
+        one key copy."""
+        layout = resolve_layout(layout, len(self))
         with self._lock:
-            ctx = self._contexts.get(device)
+            ctx = self._contexts.get((device, layout))
             if ctx is None:
-                ctx = self._contexts[device] = MsmContext(self, device)
+                ctx = self._contexts[(device, layout)] = MsmContext(
+                    self, device, layout=layout)
         return ctx.at_chunk(resolve_chunk(None, ctx.n))
 
 
 class MsmContext:
-    """Device-resident window-shifted base set, reused across commitments
+    """Device-resident commit key in its layout, reused across commitments
     (device None: the card)."""
 
-    # handles committed per launch sequence: the sort, chunks and tail of a
-    # batch are shared by its handles
+    # handles committed per launch sequence at most: the sort, chunks and
+    # tail of a batch are shared by its handles (launch_cut may take fewer)
     BATCH_CHUNK = 32
 
-    def __init__(self, bases, device=None, chunk=None):
+    def __init__(self, bases, device=None, chunk=None, layout="auto",
+                 point_chunk=None):
         device = F.resolve_device(device, "MsmContext")
         if isinstance(bases, DeviceCommitKey):
             ax, ay, inf = CT.batch_to_affine(bases.point)
         else:
             ax, ay, inf = points_to_device(bases, 0, device)
-        self._build(ax, ay, inf, chunk=chunk)
+        self._build(ax, ay, inf, chunk=chunk, layout=layout,
+                    point_chunk=point_chunk)
 
     @classmethod
-    def from_affine(cls, ax, ay, inf, key, chunk=None):
+    def from_affine(cls, ax, ay, inf, key=None, chunk=None, layout="auto",
+                    point_chunk=None):
         """A context over (12, n) affine Montgomery bases already on a
-        device, (n,) inf marking points at infinity, and their
-        window-shifted key, built by the caller (shifted_key with
-        window_of(n)'s c and windows)."""
+        device, (n,) inf marking points at infinity, and their key when
+        the caller built it: the window-shifted key (shifted_key with
+        window_of(n)'s c and windows) unless layout is "base"."""
+        if key is not None and layout == "auto":
+            layout = "shifted"
         ctx = cls.__new__(cls)
-        ctx._build(ax, ay, inf, key, chunk)
+        ctx._build(ax, ay, inf, key, chunk, layout, point_chunk)
         return ctx
 
-    def _build(self, ax, ay, inf, key=None, chunk=None):
+    def _build(self, ax, ay, inf, key=None, chunk=None, layout="auto",
+               point_chunk=None):
         self.device = ax.device
         self.n = ax.shape[1]
         self.signed, self.c, self.windows, self.n_buckets = \
             window_of(self.n)
+        self.layout = resolve_layout(layout, self.n)
+        # base layout: one lane per (handle, window) over the n points
+        self.lanes = 1 if self.layout == "shifted" else self.windows
         self.inf = inf
-        self.key = shifted_key(ax, ay, inf, self.c, self.windows) \
-            if key is None else key
+        self.point_chunk = point_chunk
+        # the key's rows; one handle's launches cut them only on the base
+        # layout (checked before the key is built)
+        rows = self.n * (self.windows if self.layout == "shifted" else 1)
+        cut = launch_cut(1, self.lanes, rows, point_chunk)[1]
+        if self.layout == "shifted" and cut < rows:
+            raise ValueError("MsmContext: one handle over the %d-row "
+                             "shifted key passes the launch limits; use "
+                             "the base layout" % rows)
+        if key is None:
+            key = shifted_key(ax, ay, inf, self.c, self.windows) \
+                if self.layout == "shifted" else point_major(ax, ay)
+        self.key = key
         # bucket_sums' chunk, resolved once (resolve_chunk)
         self.chunk = resolve_chunk(chunk, self.n)
         self._views = {self.chunk: self}
         self._views_lock = threading.Lock()
 
     def at_chunk(self, chunk):
-        """This context at another chunk: a view sharing the shifted key
-        (built once per chunk), or self at its own chunk."""
+        """This context at another chunk: a view sharing the key (built
+        once per chunk), or self at its own chunk."""
         with self._views_lock:
             view = self._views.get(chunk)
             if view is None:
@@ -558,25 +738,45 @@ class MsmContext:
 
     def bucket_planes(self, v):
         """(8, B, n) Montgomery Fr scalars on this context's device -> the
-        bucket sums ((12, B, n_buckets),)*3 (kernel 3: msm_digits, then
-        bucket_sums)."""
-        ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
-        return bucket_sums(self.key, ops, keys, v.shape[1], self.n_buckets,
-                           self.chunk)
+        bucket sums (kernel 3: msm_digits, then bucket_sums): ((12, B,
+        n_buckets),)*3 on the shifted layout; ((12, B * windows,
+        n_buckets),)*3, lane b * windows + w, on the base layout, where
+        the planes of each point range (launch_cut) merge by kernel 4's
+        proj_add in range order."""
+        B = v.shape[1]
+        if self.layout == "shifted":
+            ops, keys = msm_digits(v, self.inf, self.c, self.signed, True)
+            return bucket_sums(self.key, ops, keys, B, self.n_buckets,
+                               self.chunk)
+        # the batch's B * windows lanes over ranges of the points
+        step = launch_cut(1, B * self.lanes, self.n, self.point_chunk)[1]
+        acc = None
+        for p0 in range(0, self.n, step):
+            p1 = min(p0 + step, self.n)
+            ops, keys = msm_digits(v[:, :, p0:p1], self.inf[p0:p1], self.c,
+                                   self.signed, False)
+            part = bucket_sums(self.key[p0:p1], ops, keys, B * self.lanes,
+                               self.n_buckets, self.chunk)
+            del ops, keys
+            acc = part if acc is None else CT.proj_add(acc, part)
+        return acc
 
     def tail(self, planes):
         """Bucket sums -> ((12, B),)*3 projective totals (kernel 4's
-        msm_tail)."""
-        return msm_tail(*planes, self.signed)
+        msm_tail on the shifted layout, msm_finish on the base one)."""
+        if self.layout == "shifted":
+            return msm_tail(*planes, self.signed)
+        return msm_finish(*planes, self.windows, self.c, self.signed)
 
     def msm_mont_limbs_many_async(self, hs):
         """Enqueue the commitments of (8, L <= n) Montgomery Fr coefficient
-        handles, BATCH_CHUNK handles per launch sequence; returns force()
-        -> affine host points, which does the transfers and the host
-        decode. Nothing here waits on the device."""
-        totals = [self.tail(self.bucket_planes(
-            self.stack(hs[i:i + self.BATCH_CHUNK])))
-            for i in range(0, len(hs), self.BATCH_CHUNK)]
+        handles, as many per launch sequence as launch_cut allows; returns
+        force() -> affine host points, which does the transfers and the
+        host decode. Nothing here waits on the device."""
+        step = launch_cut(self.BATCH_CHUNK, self.lanes, self.key.shape[0],
+                          self.point_chunk)[0]
+        totals = [self.tail(self.bucket_planes(self.stack(hs[i:i + step])))
+                  for i in range(0, len(hs), step)]
 
         def force():
             return [p for t in totals for p in CT.proj_to_affine(t)]

@@ -75,8 +75,11 @@ class TorchBackend:
     # entries per device cache (jax_backend's _CACHE_CAP)
     _CACHE_CAP = 4
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, msm_layout="auto"):
         self.device = F.resolve_device(device, "TorchBackend")
+        # the commit keys' MSM layout (msm_torch.resolve_layout): auto,
+        # shifted or base
+        self.msm_layout = msm_layout
         self._msm_ctxs = {}      # id(ck) -> (ck, MsmContext)
         self._pk_polys = {}      # id(pk) -> (pk, selectors, sigmas)
         self._circuit_tabs = {}  # id(circuit) -> (circuit, tables)
@@ -368,11 +371,11 @@ class TorchBackend:
         if isinstance(ck, DeviceCommitKey):
             # the key's own context on this device: shared with every
             # other backend here (preprocess's, a service's pool workers)
-            ctx = self._cached(self._msm_ctxs, id(ck),
-                               lambda: (ck, ck.context(self.device)))[1]
+            ctx = self._cached(self._msm_ctxs, id(ck), lambda: (
+                ck, ck.context(self.device, self.msm_layout)))[1]
         else:
-            ctx = self._cached(self._msm_ctxs, id(ck),
-                               lambda: (ck, MsmContext(ck, self.device)))[1]
+            ctx = self._cached(self._msm_ctxs, id(ck), lambda: (
+                ck, MsmContext(ck, self.device, layout=self.msm_layout)))[1]
         return ctx.at_chunk(resolve_chunk(None, ctx.n))
 
     def commit_many_h(self, ck, hs):

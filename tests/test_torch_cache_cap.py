@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 class _Ctx:
     """MsmContext stand-in: remembers its bases, commits to infinity."""
 
-    def __init__(self, bases, device=None):
+    def __init__(self, bases, device=None, layout="auto"):
         self.bases = bases
         self.n = len(bases)
 

@@ -157,6 +157,27 @@ def test_msm_tail_kernel_matches_plain_unsigned(nb):
                   M.msm_tail_ref(*sums, signed=False))
 
 
+def test_msm_finish_kernel_matches_plain():
+    """msm_finish (kernel 4's window finish): the base layout's bucket
+    sums of 3 handles over 512 base points (37 window lanes each) against
+    msm_finish_ref; the base context's points against the shifted one's,
+    also over point ranges of 200 points merged by proj_add."""
+    dev = _card()
+    n, B = 512, 3
+    px, py, inf = _key(n, 8, dev)
+    hs = [TL.lift(_values(R_MOD, n, 9 + b), dev) for b in range(B)]
+    base = M.MsmContext.from_affine(px, py, inf, layout="base")
+    sums = base.bucket_planes(base.stack(hs))
+    assert _equal(M.msm_finish_cuda(*sums, M.W7, 7, True),
+                  M.msm_finish_ref(*sums, M.W7, 7, True))
+    want = M.MsmContext.from_affine(px, py, inf, layout="shifted") \
+        .msm_mont_limbs_many(hs)
+    assert base.msm_mont_limbs_many(hs) == want
+    cut = M.MsmContext.from_affine(px, py, inf, layout="base",
+                                   point_chunk=200)
+    assert cut.msm_mont_limbs_many(hs) == want
+
+
 def test_add_kernels_match_plain():
     dev = _card()
     px, py, inf = _key(256, 7, dev)
