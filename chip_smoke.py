@@ -25,7 +25,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    kernel 4's window finish (msm_finish) on the same batch over the
    base layout of the key (one lane per handle and window: 5 x 37 lanes
    of 64 buckets, the round-1 batch shape of v1 and v2), against
-   msm_finish_ref and, as points, against the shifted key's totals. Round
+   msm_finish_ref and, as points, against the shifted key's totals, with
+   its kernels' registers and spills and each kernel's profiler time;
+   then msm_finish at 1 and 33 handles, on identity sums and at unsigned
+   c = 4 (64 windows over 64 points), each against its plain version. Round
    3's folds (csrc/round3.cu: r3_gate_fold, r3_sigma_fold, r3_combine)
    against their plain versions on seeded words with the corners 0, 1
    and r - 1, at v1's shapes (13 selector planes, 5 sigma planes, the
@@ -3819,7 +3822,74 @@ def run_phases(cleanup):
            "(12, %d, %d) -> (12, %d)" % (B * fin_w, nb, B))
     print("msm_finish: %d handles' totals over the base layout equal the "
           "shifted key's msm_tail totals as points" % B, flush=True)
-    del base_ctx, want
+    # its registers and spills (nvcc's ptxas report), and each of its two
+    # kernels' device time under the profiler at the round-1 batch
+    for fn, regs, spill in ptxas_report(_build.build_log.get("finish", "")):
+        print("msm_finish ptxas %-40s %s; %s" % (fn[:40], regs, spill))
+    for fn, regs, spill in ptxas_report(_build.build_log.get("curve", "")):
+        if "msm_tail_kernel" in fn:     # the single-thread window sums
+            print("msm_tail ptxas   %-40s %s; %s" % (fn[:40], regs, spill))
+    finish()
+    torch.cuda.synchronize()
+    with _profiler(cpu=False) as prof:
+        for _ in range(5):
+            finish()
+        torch.cuda.synchronize()
+    # per event: the profiler can lose some of a window's events
+    stages = {k.split("(")[0].split()[-1]: round(us / count, 2)
+              for k, count, us in _device_kernels(prof)}
+    steps = (fin_w - 1) * (fin_c + 1)
+    kernels["msm_finish"]["stages_us"] = stages or None
+    print("msm_finish stages at the round-1 batch (profiler, us per call): "
+          "%s; the Horner's %d steps at %s us each" % (
+              json.dumps(stages) if stages else "not measured", steps,
+              "%.4f" % (stages["horner_kernel"] / steps)
+              if "horner_kernel" in stages else "not measured"), flush=True)
+    # more batches, each against its plain version: msm24's (1 handle), 33
+    # handles (more than one block of Horner warps), sums that are all the
+    # identity (the total (0 : 1 : 0)); one plain call holds the three
+    # signed batches side by side (each handle's chain is its own). Then
+    # unsigned c = 4 (64 windows of 16 buckets) over the key's first 64
+    # points, a key of under 256 points.
+    fin_rng = random.Random(20261018)
+    cases = {
+        "B=1 (msm24's batch)": base_ctx.bucket_planes(hv[:, :1]),
+        "B=33": base_ctx.bucket_planes(seeded_words(dev, fin_rng, 33,
+                                                    base_ctx.n)),
+        "identity sums": CT.proj_inf((fin_w, nb), dev)}
+    cases = {k: tuple(p.contiguous() for p in v) for k, v in cases.items()}
+    wcs = fin_args[3:]
+    got = {k: M.msm_finish_cuda(*v, *wcs) for k, v in cases.items()}
+    want, pms = plain_ms(lambda: M.msm_finish_ref(
+        *(torch.cat(p, dim=1) for p in zip(*cases.values())), *wcs),
+        warm=False)
+    at = 0
+    for k, v in cases.items():
+        b = v[0].shape[1] // fin_w
+        err = max_abs_err(got[k], tuple(w[:, at:at + b] for w in want))
+        assert err == 0, ("msm_finish", k, err)
+        at += b
+        print("parity msm_finish %-28s exact  launched from Python %.4f "
+              "ms" % (k, launch_ms(lambda v=v: M.msm_finish_cuda(*v, *wcs),
+                                   5)))
+    assert max_abs_err(got["identity sums"], CT.proj_inf((1,), dev)) == 0
+    print("msm_finish: the three batches' plain version in one call "
+          "(%d handles): %.3f ms; the identity sums' total is (0 : 1 : 0)"
+          % (at, pms), flush=True)
+    small = M.MsmContext(ck[:64], dev, layout="base")
+    assert (small.signed, small.c, small.windows) == (False, 4, 64)
+    planes = tuple(p.contiguous() for p in small.bucket_planes(
+        seeded_words(dev, fin_rng, 2, small.n)))
+    small_args = (small.windows, small.c, small.signed)
+    got = M.msm_finish_cuda(*planes, *small_args)
+    want, pms = plain_ms(lambda: M.msm_finish_ref(*planes, *small_args),
+                         warm=False)
+    assert max_abs_err(got, want) == 0, "msm_finish unsigned c = 4"
+    print("parity msm_finish %-28s exact  launched from Python %.4f ms  "
+          "plain %.3f ms" % ("unsigned c=4 W=64 B=2", launch_ms(
+              lambda: M.msm_finish_cuda(*planes, *small_args), 5), pms),
+          flush=True)
+    del base_ctx, want, cases, got, small, planes
 
     # K4 elementwise: P + P on the key's bases (the key build's launch,
     # 8,224 lanes), and full and mixed adds at a wide batch

@@ -56,7 +56,7 @@ SOURCES = {
     "round3": "round3.cu",
     "finish": "msm_finish.cu",
 }
-HEADERS = ("field.cuh", "curve.cuh", "msm_tail.cuh")
+HEADERS = ("field.cuh", "curve.cuh", "msm_tail.cuh", "curve_coop.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -503,12 +503,12 @@ def msm_finish_ref(bx, by, bz, windows, c, signed):
 
 def msm_finish_cuda(bx, by, bz, windows, c, signed):
     """Kernel 4's window-finish launch (see msm_finish_ref): the weighted
-    sum of each (handle, window) lane, then one Horner thread per
-    handle."""
+    sum of each (handle, window) lane, then one Horner warp per handle,
+    each complete add spread over the lanes of a warp (csrc/
+    curve_coop.cuh). One launch in the counts for the two kernels."""
     CT._check_point((bx, by, bz), tuple(bz.shape), bz.device, "msm_finish")
-    if bz.dim() != 3 or bz.device.type != "cuda":
-        raise ValueError("msm_finish: expected (12, B * W, nb) CUDA bucket "
-                         "sums")
+    if bz.dim() != 3:
+        raise ValueError("msm_finish: expected (12, B * W, nb) bucket sums")
     lanes, nb = bz.shape[1:]
     S, L = tail_shape(nb)
     if nb & (nb - 1) or S < 2:
@@ -516,6 +516,8 @@ def msm_finish_cuda(bx, by, bz, windows, c, signed):
     if windows < 1 or c < 1 or lanes % windows:
         raise ValueError("msm_finish: %d lanes are not handles x %d windows"
                          % (lanes, windows))
+    if bz.device.type != "cuda":
+        raise ValueError("msm_finish: expected CUDA bucket sums")
     B = lanes // windows
     sums = tuple(torch.empty((FQ_WORDS, lanes), dtype=torch.int32,
                              device=bz.device) for _ in range(3))

@@ -1,7 +1,7 @@
-// The weighted bucket sum of the MSM tail, shared by kernel 4's msm_tail
-// (curve_add.cu, one block per handle over the window-shifted key's bucket
-// sums) and its window finish (msm_finish.cu, one block per (handle,
-// window) lane of the base layout, then the Horner over windows).
+// The weighted bucket sum of kernel 4's msm_tail (curve_add.cu, one block
+// per handle over the window-shifted key's bucket sums). The window finish
+// (msm_finish.cu) keeps this order with the warp-cooperative add of
+// curve_coop.cuh.
 //
 // One block per lane m: total = sum_j (j + 1) * column_j over the nb
 // bucket sums, cut into S <= 8 segments of L columns. Thread s runs the

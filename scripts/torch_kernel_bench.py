@@ -13,7 +13,8 @@ Modes, as in the JAX script:
          (msm_torch: the window-shifted key and the base key), which must
          give the same point
   msm24  the MSM at 2^24 points on the base layout (BASELINE.json's
-         configuration 5)
+         configuration 5), with its window finish (msm_finish) timed
+         alone on its bucket sums
   all    fr, fq, ntt and msm
 
 The MSM's bases tile 2^11 distinct points (the reference's micro-test,
@@ -32,8 +33,9 @@ mode: fr / fq (kernel, n, chain, s_per_call, mul_per_s, ns_per_mul), ntt
 (kernel, s, elements_per_s), msm_2p16 / msm_2p20 / msm_2p24 (kernel, n,
 layout, s, points_per_s, key_build_s, tiling_identity, and on the card
 key_peak_mib and peak_mib: the peak device memory after the key's build
-and over the run); msm_2p20 also has `shifted` and `base`, one record
-per layout, and `same_point`}.
+and over the run; finish_ms, the window finish per call, on the base
+layout); msm_2p20 also has `shifted` and `base`, one record per layout,
+and `same_point`}.
 
 Runs on the card unless --device cpu asks for the kernels' plain
 versions; without a card and without --device cpu it exits non-zero
@@ -202,6 +204,15 @@ class MsmBench:
         rec.update(s=round(dt, 4), points_per_s=round(n / dt))
         if cuda:
             rec["peak_mib"] = self._peak_mib()
+        if ctx.layout == "base":
+            # the window finish alone (kernel 4's msm_finish) on this
+            # MSM's bucket sums; one call on the CPU, where its plain
+            # version takes seconds
+            planes = ctx.bucket_planes(ctx.stack([v[:, 0]]))
+            fin_s, _ = _timed(lambda: ctx.tail(planes), self.device,
+                              5 if cuda else 1)
+            rec["finish_ms"] = round(1e3 * fin_s, 4)
+            del planes
         del ctx
         want = self.oracle.msm_mont_limbs_many([self.tiled_sum(v)])[0]
         rec["tiling_identity"] = got == want

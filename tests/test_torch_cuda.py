@@ -157,25 +157,46 @@ def test_msm_tail_kernel_matches_plain_unsigned(nb):
                   M.msm_tail_ref(*sums, signed=False))
 
 
-def test_msm_finish_kernel_matches_plain():
+# msm_finish's batches: (handles, key points, (signed, c, windows)); key
+# points None: bucket sums that are all the identity
+FINISH_CASES = {
+    "signed_c7_W37_B1": (1, 512, (True, 7, M.W7)),       # msm24's batch
+    "signed_c7_W37_B5": (5, 512, (True, 7, M.W7)),       # a round-1 batch
+    "signed_c7_W37_B33": (33, 512, (True, 7, M.W7)),     # > 1 Horner block
+    "unsigned_c4_W64_B2": (2, 64, (False, 4, 64)),       # keys < 256 points
+    "identity_sums": (2, None, (True, 7, M.W7)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FINISH_CASES))
+def test_msm_finish_kernel_matches_plain(case):
     """msm_finish (kernel 4's window finish): the base layout's bucket
-    sums of 3 handles over 512 base points (37 window lanes each) against
-    msm_finish_ref; the base context's points against the shifted one's,
-    also over point ranges of 200 points merged by proj_add."""
+    sums of each batch against msm_finish_ref limb for limb, and the base
+    context's points against the shifted one's (at 5 handles also over
+    point ranges of 200 points merged by proj_add); sums that are all the
+    identity total (0 : 1 : 0)."""
     dev = _card()
-    n, B = 512, 3
+    B, n, (signed, c, W) = FINISH_CASES[case]
+    if n is None:
+        sums = CT.proj_inf((B * W, 1 << (c - 1)), dev)
+        got = M.msm_finish_cuda(*sums, W, c, signed)
+        assert _equal(got, M.msm_finish_ref(*sums, W, c, signed))
+        assert _equal(got, CT.proj_inf((B,), dev))
+        return
     px, py, inf = _key(n, 8, dev)
     hs = [TL.lift(_values(R_MOD, n, 9 + b), dev) for b in range(B)]
     base = M.MsmContext.from_affine(px, py, inf, layout="base")
+    assert (base.signed, base.c, base.windows) == (signed, c, W)
     sums = base.bucket_planes(base.stack(hs))
-    assert _equal(M.msm_finish_cuda(*sums, M.W7, 7, True),
-                  M.msm_finish_ref(*sums, M.W7, 7, True))
+    assert _equal(M.msm_finish_cuda(*sums, W, c, signed),
+                  M.msm_finish_ref(*sums, W, c, signed))
     want = M.MsmContext.from_affine(px, py, inf, layout="shifted") \
         .msm_mont_limbs_many(hs)
     assert base.msm_mont_limbs_many(hs) == want
-    cut = M.MsmContext.from_affine(px, py, inf, layout="base",
-                                   point_chunk=200)
-    assert cut.msm_mont_limbs_many(hs) == want
+    if B == 5:
+        cut = M.MsmContext.from_affine(px, py, inf, layout="base",
+                                       point_chunk=200)
+        assert cut.msm_mont_limbs_many(hs) == want
 
 
 def test_add_kernels_match_plain():

@@ -66,6 +66,8 @@ def test_kernel_bench_meets_the_tiling_identity_on_both_layouts():
     assert msm["same_point"] is True
     assert [msm[k]["layout"] for k in ("shifted", "base")] == \
         ["shifted", "base"]
+    # the base layout's window finish (msm_finish) is timed beside its MSM
+    assert msm["base"]["finish_ms"] > 0 and "finish_ms" not in msm["shifted"]
     for rec in (msm["shifted"], msm["base"]):
         assert rec["tiling_identity"] is True and rec["n"] == 64
         assert rec["points_per_s"] > 0
