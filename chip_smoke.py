@@ -560,6 +560,162 @@ def ptxas_report(log):
     return out
 
 
+# phase 2's full adds by width (lanes, repeats): the mesh fold's 320 lanes,
+# the v1 key build's 8,224 (its launch: 7 doublings), 16,384 past the
+# switch of bodies (curve_torch.COOP_MAX_LANES), phase 2's wide check of
+# 189,440, and the v2 and 2^20 keys' widths; each exact against its plain
+# version up to PROJ_ADD_CHECK_MAX lanes, timed only above
+PROJ_ADD_ROWS = ((320, 1), (8224, 1), (8224, 7), (16384, 1), (16384, 7),
+                 (189440, 1), (1 << 18, 1), (1 << 18, 7), (1 << 20, 1),
+                 (1 << 20, 7))
+PROJ_ADD_CHECK_MAX = 1 << 18
+PROJ_ADD_KERNELS = {"coop": "add_coop_kernel", "thread": "add_full_kernel"}
+
+
+def _profile_us(fns, calls=3, tries=3):
+    """Profiler us a call of each body's kernel (PROJ_ADD_KERNELS), fns
+    {body: one launch} run `calls` times each in one profiler session;
+    a session that lost a body's events (the profiler can) is run again,
+    up to `tries` sessions. Bodies it never saw are left out."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    us = {}
+    for _ in range(tries):
+        with _profiler(cpu=False) as prof:
+            for fn in fns.values():
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        # per event: a session can also lose some of a kernel's events
+        rows = _device_kernels(prof)
+        for body in fns:
+            hit = [u / c for k, c, u in rows if PROJ_ADD_KERNELS[body] in k]
+            if hit and body not in us:
+                us[body] = hit[0]
+        if len(us) == len(fns):
+            break
+    return us
+
+
+def proj_add_widths(base, rows=PROJ_ADD_ROWS):
+    """Kernel 4's full add (curve_torch._add_cuda) by width, on points
+    tiled from `base` (a projective (12, m) triple on the card): P + Q for
+    reps 1 (Q = P_(i+1) + P_i, lanes 1-4 P = Q, P = -Q, Q and P the
+    identity), else `reps` doublings of P in one launch; each of the two
+    bodies (the cooperative one and the one thread a point) exact against
+    the plain version up to PROJ_ADD_CHECK_MAX lanes, with its graph ms,
+    launch ms and profiler us a call beside the bound; ptxas's registers
+    and spills of both. Prints and returns the rows."""
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import curve_torch as CT
+    from distributed_plonk_tpu_torch.backend import field_torch as F
+    for fn, regs, spill in ptxas_report(_build.build_log.get("curve", "")):
+        if any(k in fn for k in PROJ_ADD_KERNELS.values()):
+            print("proj_add ptxas %-40s %s; %s" % (fn[:40], regs, spill))
+    dev, m = base[0].device, base[0].shape[1]
+    out = []
+    for lanes, reps in rows:
+        idx = torch.arange(lanes, device=dev) % m
+        p = [c.index_select(1, idx) for c in base]
+        q = list(CT._add_cuda(tuple(p), tuple(
+            c.index_select(1, (idx + 1) % m) for c in base)))
+        if lanes >= 5:
+            ident = CT.proj_inf((1,), dev)
+            for k in range(3):
+                q[k][:, 1] = p[k][:, 1]
+                q[k][:, 3] = ident[k][:, 0]
+                p[k][:, 4] = ident[k][:, 0]
+            q[0][:, 2], q[2][:, 2] = p[0][:, 2], p[2][:, 2]
+            q[1][:, 2:3] = F.sub(F.FQ, torch.zeros_like(p[1][:, 2:3]),
+                                 p[1][:, 2:3])
+        p, q = tuple(p), tuple(q)
+        args = (p, q) if reps == 1 else (p, p, reps)
+        nbytes = (9 if reps == 1 else 6) * 48 * lanes
+        imads = lanes * reps * 12 * FQ_MUL_IMADS
+        row = {"lanes": lanes, "reps": reps,
+               "op": "P + Q" if reps == 1 else "%d doublings" % reps,
+               "bound_ms": bound_ms(nbytes, imads),
+               "bound_by": bound_by(nbytes, imads),
+               "default": "coop" if lanes < CT.COOP_MAX_LANES else "thread",
+               "exact": lanes <= PROJ_ADD_CHECK_MAX, "plain_ms": None}
+        if row["exact"]:
+            def plain():
+                return CT.proj_add_ref(p, q) if reps == 1 else \
+                    CT.proj_dbl_ref(p, reps)
+            plain()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            row["plain_ms"] = 1e3 * (time.perf_counter() - t)
+        calls = 50 if lanes * reps <= 1 << 14 else (
+            10 if lanes * reps <= 1 << 19 else 3)
+        fns = {}
+        for body, coop in (("coop", True), ("thread", False)):
+            def fn(coop=coop):
+                return CT._add_cuda(*args, coop=coop)
+            got = fn()
+            if row["exact"]:
+                err = max_abs_err(got, want)
+                assert err == 0, (lanes, reps, body, err)
+            del got
+            launch = launch_ms(fn, calls)
+            ms = graph_ms(fn, calls)
+            row[body] = {"ms": ms, "launch_ms": launch, "us": None,
+                         "share": row["bound_ms"] / ms}
+            fns[body] = fn
+        for body, us in _profile_us(fns).items():
+            row[body]["us"] = us
+        print("proj_add %-12s %8d lanes: coop %.4f ms (launch %.4f, "
+              "profiler %s us), thread %.4f ms (launch %.4f, profiler %s "
+              "us), bound %.4f ms (%s), plain %s ms, %s, default %s" % (
+                  row["op"], lanes, row["coop"]["ms"],
+                  row["coop"]["launch_ms"], row["coop"]["us"],
+                  row["thread"]["ms"], row["thread"]["launch_ms"],
+                  row["thread"]["us"], row["bound_ms"], row["bound_by"],
+                  "%.3f" % row["plain_ms"] if row["exact"] else "-",
+                  "exact" if row["exact"] else "timed only",
+                  row["default"]), flush=True)
+        out.append(row)
+        del p, q, args
+        if row["exact"]:
+            del want
+    print("proj_add widths: " + json.dumps(out), flush=True)
+    # the call path of the key build's launch (7 doublings, 8,224 lanes),
+    # piece by piece in host us a call: the entry, each piece it runs, and
+    # the pieces it no longer runs
+    p = tuple(c.index_select(1, torch.arange(8224, device=dev) % m)
+              for c in base)
+    raw = _build.load()["curve"].dpt_proj_add
+    o = tuple(torch.empty_like(p[0]) for _ in range(3))
+    stream = F._stream(p[0])
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "entry proj_dbl": lambda: CT.proj_dbl(p, 7),
+        "_same_shape": lambda: CT._same_shape(p),
+        "_check_point": lambda: CT._check_point(p, p[0].shape, dev, "x"),
+        "3 x torch.empty_like": lambda: [
+            torch.empty_like(p[0]) for _ in range(3)],
+        "_build.load() lookup": lambda: _build.load()["curve"],
+        "bare ctypes launch": lambda: raw(
+            *(c.data_ptr() for c in o + p + p), 8224, 7, 1, stream),
+        "current_device": torch.cuda.current_device,
+        "raw stream handle": lambda: F._stream(p[0]),
+        "(gone) broadcast_tensors+contiguous": lambda: [
+            c.contiguous() for c in torch.broadcast_tensors(*p)],
+        "(gone) torch.cuda.device context": ctx,
+    }
+    print("call path proj_add (7 doublings, 8,224 lanes), host us per "
+          "call: %s" % json.dumps({k: round(call_path_us(f, 200), 2)
+                                   for k, f in pieces.items()}), flush=True)
+    return out
+
+
 def call_path_us(fn, reps):
     """Host microseconds per call of fn(), host clock over reps calls
     after a warm-up call, the device drained before and after."""
@@ -3891,9 +4047,9 @@ def run_phases(cleanup):
           flush=True)
     del base_ctx, want, cases, got, small, planes
 
-    # K4 elementwise: P + P on the key's bases (the key build's launch,
-    # 8,224 lanes), and full and mixed adds at a wide batch
-    # (189,440 lanes) and at 370 lanes
+    # K4 elementwise: the key build's launch (c doublings of the key's
+    # 8,224 bases in one launch), the full add by width against the one
+    # thread a point, and full and mixed adds at 370 lanes
     kx, ky = ctx.key[:, :12].t(), ctx.key[:, 12:].t()
 
     def proj(a, b):
@@ -3902,32 +4058,26 @@ def run_phases(cleanup):
         return tuple(c.contiguous() for c in pt)
 
     base = proj(0, ctx.n)
-    out = CT._add_cuda(base, base)
-    want, pms = plain_ms(lambda: CT.proj_add_ref(base, base))
+    out = CT.proj_dbl(base, ctx.c)
+    want, pms = plain_ms(lambda: CT.proj_dbl_ref(base, ctx.c))
     err = max_abs_err(out, want)
-    runs["proj_add"] = (lambda: CT._add_cuda(base, base), 50)
+    runs["proj_add"] = (lambda: CT.proj_dbl(base, ctx.c), 50)
     record("proj_add", "distributed_plonk_tpu_torch/csrc/curve_add.cu",
            "distributed_plonk_tpu/backend/curve_pallas.py:289", err,
-           launch_ms(runs["proj_add"][0], 50), pms, 9 * 48 * ctx.n,
-           ctx.n * 12 * FQ_MUL_IMADS, "full P + P (12, %d)" % ctx.n)
-    wide = 189440
-    p = proj(0, wide)
-    q = CT._add_cuda(p, proj(P - wide, P))          # general Z
-    out = CT._add_cuda(p, q)
-    want, pms = plain_ms(lambda: CT.proj_add_ref(p, q))
-    assert max_abs_err(out, want) == 0
-    runs["proj_add fold width"] = (lambda: CT._add_cuda(p, q), 10)
-    print("parity proj_add full (12, %d) exact  launched from Python %.4f "
-          "ms  plain %.3f ms  bound %.4f ms (operations)"
-          % (wide, launch_ms(runs["proj_add fold width"][0], 10), pms,
-             bound_ms(9 * 48 * wide, wide * 12 * FQ_MUL_IMADS)))
-    p2 = tuple(c[:, :370].contiguous() for c in p)
-    q2 = tuple(c[:, 370:740].contiguous() for c in q)
+           launch_ms(runs["proj_add"][0], 50), pms, 6 * 48 * ctx.n,
+           ctx.n * ctx.c * 12 * FQ_MUL_IMADS,
+           "%d doublings P + P (12, %d)" % (ctx.c, ctx.n))
+    wide = proj(0, P)
+    q = CT._add_cuda(wide, tuple(torch.roll(c, 5, 1) for c in wide))
+    proj_add_widths(q)                          # on P_i + P_(i-5): general Z
+    p = proj(0, 370)
+    p2, q2 = CT._add_cuda(p, proj(P - 370, P)), p
     assert max_abs_err(CT._add_cuda(p2, q2), CT.proj_add_ref(p2, q2)) == 0
     affine = (kx[:, 1000:1370].contiguous(), ky[:, 1000:1370].contiguous())
     assert max_abs_err(CT._add_cuda(p2, affine),
                        CT.proj_add_mixed_ref(p2, affine)) == 0
     print("parity proj_add full (12, 370) and mixed (12, 370): exact")
+    del wide, q, p, p2, q2
 
     # K4 mixed: one step of the fixed-base walk of the v2 SRS (2^18 + 3
     # lanes: a projective accumulator plus a gathered affine table row)
@@ -3960,9 +4110,11 @@ def run_phases(cleanup):
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t
     pre_launches = dict(_build.LAUNCHES)
-    # preprocess builds the shifted key: the elementwise add's main path
-    assert pre_launches["proj_add"] > 0, \
-        "proj_add never launched in preprocess"
+    # preprocess builds the shifted key: the elementwise add's main path,
+    # one launch of c doublings a window after the first
+    assert pre_launches["proj_add"] == M.W7 - 1, pre_launches
+    print("the key build's proj_add launches in preprocess: %d (one launch "
+          "of 7 doublings a window)" % pre_launches["proj_add"])
     tr_cold = Tracer()
     t = time.perf_counter()
     proof = prove(random.Random(1), ckt, pk, be, tracer=tr_cold)
@@ -4076,10 +4228,15 @@ def run_phases(cleanup):
           " in set-up); equal to the host powers and tau_g2"
           % (n + 3, srs_d_s, len(srs.powers_of_g1), host_srs_s))
     be_d = TorchBackend()
+    _build.reset_launches()
     t = time.perf_counter()
     pk_d, vk_d = kzg.preprocess(srs_d, ckt, be_d)
     torch.cuda.synchronize()
     pre_d_s = time.perf_counter() - t
+    pre_d = read_launches("the device-SRS preprocess", ("proj_add",))
+    assert pre_d["proj_add"] == M.W7 - 1, pre_d
+    print("the key build's proj_add launches in the device-SRS preprocess: "
+          "%d" % pre_d["proj_add"])
     assert vk_d.selector_comms == vk.selector_comms
     assert vk_d.sigma_comms == vk.sigma_comms
     secs = []

@@ -73,7 +73,7 @@ SIGNATURES = {
             "dpt_bucket_sums": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
                                 _L, _I, _V)},
     "curve": {"dpt_proj_add": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
-                               _V),
+                               _I, _I, _V),
               "dpt_msm_tail": (_V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
                                _V)},
     "round3": {"dpt_r3_gate_fold": (_V, _L, _V, _L, _V, _L, _L, _V, _L, _L,
@@ -102,14 +102,15 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 
 # Launch counters, one plain integer per kernel entry: each wrapper adds one
 # where it launches its kernel (the NTT counts every pass it launches;
-# proj_add counts the full add and proj_add_mixed the mixed add of the same
-# kernel; bucket_sums counts one per call, which launches its chunk and
-# tree kernels; each round-3 fold counts its one launch; msm_finish counts
-# one per call, which launches its window-sum and Horner kernels). CALLS
-# counts the entry calls of the NTT, which launches
-# one kernel per pass. The service's pool threads launch concurrently, so
-# every increment goes through count() under a lock (a bare `+= 1` on a
-# dict entry can lose an update when two threads interleave).
+# proj_add counts the full add, one for a launch of `reps` doublings, and
+# proj_add_mixed the mixed add of the same entry; bucket_sums counts one
+# per call, which launches its chunk and tree kernels; each round-3 fold
+# counts its one launch; msm_finish counts one per call, which launches
+# its window-sum and Horner kernels). CALLS counts the entry calls of the
+# NTT, which launches one kernel per pass. The service's pool threads
+# launch concurrently, so every increment goes through count() under a
+# lock (a bare `+= 1` on a dict entry can lose an update when two threads
+# interleave).
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
             "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0,
             "r3_gate_fold": 0, "r3_sigma_fold": 0, "r3_combine": 0,

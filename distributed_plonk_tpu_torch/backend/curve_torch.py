@@ -5,10 +5,12 @@ Homogeneous projective (X : Y : Z) with identity (0 : 1 : 0) for the
 complete RCB15 adds of the MSM; Jacobian (x = X/Z^2, y = Y/Z^3) only where
 a device-built key arrives (`batch_to_affine` normalizes either).
 
-`proj_add` / `proj_add_mixed` are kernel 4 (csrc/curve_add.cu): on CUDA
-tensors they launch the kernel, on CPU tensors they run
-`proj_add_ref` / `proj_add_mixed_ref`, the plain versions, which stage
-their independent products as stacked-lane multiplies like curve_jax.
+`proj_add` / `proj_dbl` / `proj_add_mixed` are kernel 4 (csrc/curve_add.cu):
+on CUDA tensors they launch the kernel, on CPU tensors they run
+`proj_add_ref` / `proj_dbl_ref` / `proj_add_mixed_ref`, the plain versions,
+which stage their independent products as stacked-lane multiplies like
+curve_jax. `proj_dbl(p, reps)` is `reps` successive P + P in one launch
+(the shifted key's window of c doublings).
 """
 
 import torch
@@ -97,35 +99,82 @@ def proj_add_mixed_ref(p, q_affine):
 
 
 def _check_point(coords, shape, device, what):
+    """Every coordinate (12, *batch) contiguous int32 words of `shape` on
+    `device`: the first checked in full, the others against it."""
+    F._check_words(FQ, coords[0], what)
     for c in coords:
-        F._check_words(FQ, c, what)
-        if c.device != device or tuple(c.shape) != shape:
+        if c.dtype != torch.int32 or c.device != device or \
+                c.shape != shape or not c.is_contiguous():
+            F._check_words(FQ, c, what)
             raise ValueError("%s: coordinates must share device and shape"
                              % what)
 
 
-def _add_cuda(p, q):
-    """Kernel 4 launch: q of 3 coords -> full add, of 2 -> mixed add."""
+def proj_dbl_ref(p, reps=1):
+    """Plain version of proj_dbl: `reps` successive proj_add_ref(P, P)."""
+    for _ in range(reps):
+        p = proj_add_ref(p, p)
+    return p
+
+
+# The full add's body by width (csrc/curve_add.cu): the cooperative body
+# (six lanes an add, five adds a warp) below COOP_MAX_LANES lanes, the one
+# thread a point from there. The cooperative add spends about 1.5 times
+# the one thread's instructions an add (its operand tables, stage A on six
+# lanes), so it wins only where the one thread's chain of twelve products
+# leaves the card idle. Graph ms on one H100 at 700 W (chip_smoke.py's
+# proj_add_widths), cooperative / one thread, 7 doublings in a
+# launch: 8,224 lanes 0.0617 / 0.0893, 16,384 0.1126 / 0.0901, 2^18
+# 1.3235 / 0.9406; P + Q: 320 lanes 0.0096 / 0.0141, 8,224 0.0136 /
+# 0.0147, 16,384 0.0225 / 0.0154, 2^20 1.0989 / 0.5773.
+COOP_MAX_LANES = 12288
+
+
+def _add_cuda(p, q, reps=1, coop=None):
+    """Kernel 4 launch: q of 3 coords -> full add, of 2 -> mixed add; with
+    reps > 1 (full add, q = p) the point doubled `reps` times in the one
+    launch. The coordinates are (12, *batch) int32 words of one shape,
+    contiguous, on one CUDA device. `coop` picks the full add's body (by
+    default the width's, COOP_MAX_LANES)."""
     x1 = p[0]
-    if x1.device.type != "cuda":
-        raise ValueError("proj_add: expected CUDA tensors")
-    _check_point(tuple(p) + tuple(q), tuple(x1.shape), x1.device,
+    dev, shape = x1.device, x1.shape
+    # one check a coordinate: q is p for the doublings
+    _check_point(p if q is p else tuple(p) + tuple(q), shape, dev,
                  "proj_add")
-    out = tuple(torch.empty_like(x1) for _ in range(3))
-    z2 = q[2].data_ptr() if len(q) == 3 else None
-    lib = _build.load()["curve"]
-    with torch.cuda.device(x1.device):
-        rc = lib.dpt_proj_add(
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            p[0].data_ptr(), p[1].data_ptr(), p[2].data_ptr(),
-            q[0].data_ptr(), q[1].data_ptr(), z2,
-            x1.numel() // FQ_WORDS, F._stream(x1))
+    full = len(q) == 3
+    if reps < 1 or (reps > 1 and not (
+            full and all(a is b for a, b in zip(p, q)))):
+        raise ValueError("proj_add: reps %r (reps > 1 doubles: q is p)"
+                         % (reps,))
+    if dev.type != "cuda":
+        raise ValueError("proj_add: expected CUDA tensors")
+    n = x1.numel() // FQ_WORDS
+    if coop is None:
+        coop = n < COOP_MAX_LANES
+    out = (torch.empty_like(x1), torch.empty_like(x1), torch.empty_like(x1))
+    fn = _build.load()["curve"].dpt_proj_add
+    args = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            x1.data_ptr(), p[1].data_ptr(), p[2].data_ptr(),
+            q[0].data_ptr(), q[1].data_ptr(),
+            q[2].data_ptr() if full else None, n, reps, int(coop))
+    # the raw stream, and a device context only off the current device
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, F._stream(x1))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, F._stream(x1))
     _build.check(rc, "proj_add")
-    _build.count("proj_add" if z2 is not None else "proj_add_mixed")
+    _build.count("proj_add" if full else "proj_add_mixed")
     return out
 
 
 def _same_shape(coords):
+    """The coordinates as they are when they already share one contiguous
+    shape (the key build's and the folds' case), else broadcast and made
+    contiguous."""
+    shape = coords[0].shape
+    if all(c.shape == shape and c.is_contiguous() for c in coords):
+        return coords
     coords = torch.broadcast_tensors(*coords)
     return tuple(c.contiguous() for c in coords)
 
@@ -136,6 +185,17 @@ def proj_add(p, q):
     if coords[0].device.type == "cpu":
         return proj_add_ref(coords[:3], coords[3:])
     return _add_cuda(coords[:3], coords[3:])
+
+
+def proj_dbl(p, reps=1):
+    """P doubled `reps` times (P <- P + P by the complete add, so the limbs
+    of `reps` successive proj_add(P, P)): one launch on the card."""
+    if reps < 1:
+        raise ValueError("proj_dbl: reps %r < 1" % (reps,))
+    coords = _same_shape(tuple(p))
+    if coords[0].device.type == "cpu":
+        return proj_dbl_ref(coords, reps)
+    return _add_cuda(coords, coords, reps)
 
 
 def proj_add_mixed(p, q_affine, q_inf=None):

@@ -576,14 +576,14 @@ def window_of(n):
 def shifted_key(x, y, inf, c, windows):
     """(12, n) affine bases -> the (windows * n, 24) point-major key of
     2^(c*w) P_j at row w * n + j: c doublings (P + P, kernel 4) per window
-    on all n points, then ONE homogeneous batch inversion to affine. Rows
-    of points at infinity hold (0, 0); their ops always skip."""
+    on all n points, one proj_dbl launch a window, then ONE homogeneous
+    batch inversion to affine. Rows of points at infinity hold (0, 0);
+    their ops always skip."""
     one = F.one_like(FQ, x)
     p = (x, F.select(inf, one, y), F.select(inf, torch.zeros_like(x), one))
     planes = [p]
     for _ in range(windows - 1):
-        for _ in range(c):
-            p = CT.proj_add(p, p)
+        p = CT.proj_dbl(p, c)
         planes.append(p)
     stacked = tuple(torch.cat([q[i] for q in planes], dim=1)
                     for i in range(3))

@@ -1,15 +1,16 @@
-// Warp-cooperative complete projective addition on BLS12-381 G1: one warp
-// computes one RCB15 algorithm-7 add (curve.cuh's proj_add_full), its
-// twelve Fq products spread over the lanes.
+// Warp-cooperative complete projective addition on BLS12-381 G1: six lanes
+// compute one RCB15 algorithm-7 add (curve.cuh's proj_add_full), its
+// twelve Fq products spread over them.
 //
 // The twelve products of the formula form two levels of six independent
 // products: t0 = x1 x2, t1 = y1 y2, t2 = z1 z2 and the three cross
 // products (x1 + y1)(x2 + y2), (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2);
-// then the six products of rcb15_tail. Lane r < 6 runs product r of a
-// level; every lane runs the same instructions on its own operands, so
-// the six products of a level take the time of one. The operands reach
-// the lanes, and the products come back, through a per-warp scratch of
-// 12 Fq slots in shared memory, with __syncwarp between the stages:
+// then the six products of rcb15_tail. Lane r < 6 of a group runs product
+// r of a level; every lane runs the same instructions on its own
+// operands, so the six products of a level take the time of one. The
+// operands reach the lanes, and the products come back, through a
+// group's scratch of 12 Fq slots in shared memory, with __syncwarp
+// between the stages:
 //
 //   level 1  lane r: product r into slot r (lanes 3-5 first add the
 //            coordinates of their cross product)
@@ -28,8 +29,13 @@
 // which is fe_sub's canonical value), so every coordinate equals
 // proj_add_full's and curve_torch.proj_add_ref's limb for limb.
 //
-// Points live in shared memory as 36 words, x then y then z. The whole
-// warp calls an add, with warp-uniform arguments; the output may alias
+// coop_add_at is the group form: the caller gives each lane its r and
+// its group's points and scratch, so that one warp runs several adds in
+// one instruction stream (curve_add.cu: five, on lanes 6g..6g+5). A lane
+// that is not one of its group's six shadows r = 0 and writes nothing.
+// coop_add is the warp form of msm_finish.cu: one add on lanes 0-5,
+// lanes 6-31 shadowing lane 0. Points are 36 words, x then y then z,
+// word l at p[l * PS]; the whole warp calls an add; the output may alias
 // either input.
 #pragma once
 #include "curve.cuh"
@@ -41,21 +47,25 @@ struct CoopScratch {
   uint32_t v[12][12];
 };
 
+// an Fq value of 12 words at word stride PS
+template <int PS = 1>
 __device__ __forceinline__ void fq_get(uint32_t* r, const uint32_t* s) {
 #pragma unroll
-  for (int k = 0; k < 12; ++k) r[k] = s[k];
+  for (int k = 0; k < 12; ++k) r[k] = s[k * PS];
 }
 
+template <int PS = 1>
 __device__ __forceinline__ void fq_put(uint32_t* s, const uint32_t* r) {
 #pragma unroll
-  for (int k = 0; k < 12; ++k) s[k] = r[k];
+  for (int k = 0; k < 12; ++k) s[k * PS] = r[k];
 }
 
-// slot i of the scratch, or zero for i = 15 (F in the operand tables)
-__device__ __forceinline__ void slot_get(uint32_t* r, const CoopScratch& s,
+// slot i of the scratch s (slot i at s + 12 i), or zero for i = 15 (F in
+// the operand tables)
+__device__ __forceinline__ void slot_get(uint32_t* r, const uint32_t* s,
                                          int i) {
   const uint32_t keep = i < 12 ? ~0u : 0u;
-  const uint32_t* src = s.v[i < 12 ? i : 0];
+  const uint32_t* src = s + 12 * (i < 12 ? i : 0);
 #pragma unroll
   for (int k = 0; k < 12; ++k) r[k] = src[k] & keep;
 }
@@ -75,14 +85,15 @@ __device__ __forceinline__ void fq_addsub(uint32_t* r, const uint32_t* a,
   fe_add<Fq>(r, a, nb);
 }
 
-// (out) = (p) + (q), points of 36 words in shared memory, by the whole
-// warp; `s` is the warp's own scratch.
-__device__ __forceinline__ void coop_add(uint32_t* out, const uint32_t* p,
-                                         const uint32_t* q,
-                                         CoopScratch& s) {
-  const int lane = threadIdx.x & 31;
-  const bool writer = lane < 6;
-  const int r = writer ? lane : 0;   // lanes 6-31 shadow lane 0, unwritten
+// (out) = (p) + (q) by the group whose lane this is: r (0-5) its product,
+// `writer` false for a lane that shadows r = 0; points of 36 words at word
+// stride PS and the group's scratch s (144 words) in shared memory. Every
+// lane of the warp calls it, each with its own group's arguments.
+template <int PS>
+__device__ __forceinline__ void coop_add_at(uint32_t* out,
+                                            const uint32_t* p,
+                                            const uint32_t* q, uint32_t* s,
+                                            int r, bool writer) {
   fq_t a, b;
   // one product site for both levels keeps the code (and nvcc) small
 #pragma unroll 1
@@ -91,12 +102,12 @@ __device__ __forceinline__ void coop_add(uint32_t* out, const uint32_t* p,
       // coordinate i (x, y, z, x, y, x), plus coordinate j for r >= 3
       const int i = (0x010210 >> (4 * r)) & 15;
       const int j = (0x221000 >> (4 * r)) & 15;
-      fq_get(a, p + 12 * i);
-      fq_get(b, q + 12 * i);
+      fq_get<PS>(a, p + 12 * PS * i);
+      fq_get<PS>(b, q + 12 * PS * i);
       if (r >= 3) {
         fq_t a2, b2;
-        fq_get(a2, p + 12 * j);
-        fq_get(b2, q + 12 * j);
+        fq_get<PS>(a2, p + 12 * PS * j);
+        fq_get<PS>(b2, q + 12 * PS * j);
         fe_add<Fq>(a, a, a2);
         fe_add<Fq>(b, b, b2);
       }
@@ -106,7 +117,7 @@ __device__ __forceinline__ void coop_add(uint32_t* out, const uint32_t* p,
       slot_get(b, s, (0x679A8B >> (4 * r)) & 15);
     }
     fe_mont_mul<Fq>(a, a, b);
-    if (writer) fq_put(s.v[r], a);
+    if (writer) fq_put(s + 12 * r, a);
     __syncwarp();
     if (level == 0) {
       // stage A, slots 0-5 = t0, t1, t2, m_xy, m_yz, m_xz:
@@ -125,17 +136,26 @@ __device__ __forceinline__ void coop_add(uint32_t* out, const uint32_t* p,
 #pragma unroll
       for (int k = 0; k < 12; ++k)
         y[k] = r == 2 ? x3[k] : (r >= 4 ? y[k] : x2[k]);
-      if (writer) fq_put(s.v[6 + r], y);
+      if (writer) fq_put(s + 12 * (6 + r), y);
       __syncwarp();
     }
   }
   // slots 0-5 = t2c, x3a, t1b, y3c, z3b, t0c: x3 = t2c - x3a, y3 = t1b +
   // y3c, z3 = z3b + t0c
-  fq_get(a, s.v[2 * r]);
-  fq_get(b, s.v[2 * r + 1]);
+  fq_get(a, s + 12 * (2 * r));
+  fq_get(b, s + 12 * (2 * r + 1));
   fq_addsub(a, a, b, r == 0);
-  if (lane < 3) fq_put(out + 12 * lane, a);
+  if (writer && r < 3) fq_put<PS>(out + 12 * PS * r, a);
   __syncwarp();
+}
+
+// (out) = (p) + (q), points of 36 contiguous words in shared memory, by
+// the whole warp on lanes 0-5; `s` is the warp's own scratch.
+__device__ __forceinline__ void coop_add(uint32_t* out, const uint32_t* p,
+                                         const uint32_t* q,
+                                         CoopScratch& s) {
+  const int lane = threadIdx.x & 31;
+  coop_add_at<1>(out, p, q, s.v[0], lane < 6 ? lane : 0, lane < 6);
 }
 
 // Word l (0-35) of point i of limb-major planes x, y, z (word k of point i

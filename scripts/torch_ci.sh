@@ -35,8 +35,8 @@ case "$1" in
     exec env JAX_PLATFORMS=cpu $PYTEST -m 'not slow' \
       tests/test_torch_field.py tests/test_torch_ntt.py \
       tests/test_torch_msm.py tests/test_torch_msm_base.py \
-      tests/test_torch_msm_finish_coop.py tests/test_torch_round3.py \
-      tests/test_torch_round3_fused.py
+      tests/test_torch_msm_finish_coop.py tests/test_torch_proj_add_coop.py \
+      tests/test_torch_round3.py tests/test_torch_round3_fused.py
     ;;
   analyze)
     shift

@@ -199,17 +199,75 @@ def test_msm_finish_kernel_matches_plain(case):
         assert cut.msm_mont_limbs_many(hs) == want
 
 
-def test_add_kernels_match_plain():
-    dev = _card()
-    px, py, inf = _key(256, 7, dev)
+@pytest.fixture(scope="module")
+def add_key():
+    return _key(256, 7, _card())
+
+
+def _add_operands(px, py, inf, lanes):
+    """(P, Q) of `lanes` lanes with general Z, tiled from the key; from 5
+    lanes on, lane 1 holds Q = P, lane 2 Q = -P, lane 3 Q = the identity
+    and lane 4 P = the identity."""
+    reps = -(-lanes // px.shape[1])
+    base = CT.from_affine(*(t.repeat(1, reps)[:, :lanes].contiguous()
+                            for t in (px, py)), inf.repeat(reps)[:lanes])
+    p = [c.clone() for c in CT.proj_add_ref(base, tuple(
+        torch.roll(c, 1, 1) for c in base))]
+    q = [c.clone() for c in CT.proj_add_ref(p, tuple(
+        torch.roll(c, 3, 1) for c in base))]
+    if lanes >= 5:
+        ident = CT.proj_inf((1,), px.device)
+        for k in range(3):
+            q[k][:, 1] = p[k][:, 1]
+            q[k][:, 3] = ident[k][:, 0]
+            p[k][:, 4] = ident[k][:, 0]
+        q[0][:, 2], q[2][:, 2] = p[0][:, 2], p[2][:, 2]
+        q[1][:, 2:3] = F.sub(F.FQ, torch.zeros_like(p[1][:, 2:3]),
+                             p[1][:, 2:3])
+    return tuple(p), tuple(q)
+
+
+def _raw_add(out, q, n, reps, coop):
+    """dpt_proj_add with the output aliasing the first input, `out`."""
+    from distributed_plonk_tpu_torch.backend import _build
+    rc = _build.load()["curve"].dpt_proj_add(
+        *(c.data_ptr() for c in out), *(c.data_ptr() for c in out),
+        *(c.data_ptr() for c in q), n, reps, int(coop), F._stream(out[0]))
+    _build.check(rc, "proj_add")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 6, 39, 40, 41, 320, 8224, 1 << 18])
+def test_add_kernels_match_plain(lanes, add_key):
+    """The full add's two bodies (cooperative and one thread a point) at
+    each width, P + Q and 7 doublings in one launch, with identity lanes,
+    P = Q and P = -P, and with the output aliasing the input; the mixed
+    add; the shifted key's build."""
+    px, py, inf = add_key
+    p, q = _add_operands(px, py, inf, lanes)
+    want = CT.proj_add_ref(p, q)
+    want_dbl = CT.proj_dbl_ref(p, 7)
+    for coop in (True, False):
+        assert _equal(CT._add_cuda(p, q, coop=coop), want), coop
+        assert _equal(CT._add_cuda(p, p, 7, coop=coop), want_dbl), coop
+        assert _equal(CT._add_cuda(p, p, 1, coop=coop),
+                      CT.proj_add_ref(p, p)), coop
+        out = tuple(c.clone() for c in p)
+        _raw_add(out, q, lanes, 1, coop)
+        assert _equal(out, want), ("aliased", coop)
+        out = tuple(c.clone() for c in p)
+        _raw_add(out, out, lanes, 7, coop)
+        assert _equal(out, want_dbl), ("aliased doublings", coop)
+    assert _equal(CT.proj_dbl(p, 7), want_dbl)
+    assert _equal(CT.proj_add(p, q), want)
     p = CT.from_affine(px[:, :128].contiguous(), py[:, :128].contiguous(),
                        inf[:128])
     q = tuple(c.contiguous() for c in CT.proj_add_ref(p, p))
     assert _equal(CT._add_cuda(p, q), CT.proj_add_ref(p, q))
     affine = (px[:, 128:].contiguous(), py[:, 128:].contiguous())
     assert _equal(CT._add_cuda(q, affine), CT.proj_add_mixed_ref(q, affine))
-    # the shifted key's build (doublings through the kernel) equals the
-    # plain build on the CPU
+    # the shifted key's build (one launch of 7 doublings a window through
+    # the kernel) equals the plain build on the CPU
     assert torch.equal(M.shifted_key(px, py, inf, 7, 3).cpu(),
                        M.shifted_key(px.cpu(), py.cpu(), inf.cpu(), 7, 3))
 
