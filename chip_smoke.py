@@ -153,13 +153,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    provisioned by scripts/torch_warmup.py --aot in a child process (the
    v1 bucket's keys and the kernel build's `kbuild:` artifact); two
    workers; two more JOIN (the epoch rises, the sharded FFT plans over
-   4); worker 1 SIGKILLed at its first FFT1 by the proc fault plane,
-   respawned on an empty store and an empty build directory and rejoined
-   at its index (heal seconds), having pulled the kernel build and the
-   bucket from slot 0's store with no nvcc run (HEALTH `build`: source
-   peer, nvcc_s null; it launches K1-K4 in step 4); a fifth worker whose
-   first
-   process lies about its MSM partials, caught by duplicate execution,
+   4); worker 1 SIGKILLed at its first FFT1 by the proc fault plane
+   under a ProofService job proving through the fleet (the dispatcher
+   traced), respawned on an empty store and an empty build directory and
+   rejoined at its index (heal seconds), having pulled the kernel build
+   and the bucket from slot 0's store with no nvcc run (HEALTH `build`:
+   source peer, nvcc_s null; it launches K1-K4 in step 4); the incident
+   read off one artifact, merge_fleet_trace (the job's spans and the
+   fleet's, the dispatcher's, supervisor's and workers' log events under
+   the job's trace id), also over HTTP at /trace/<job_id>; a fifth
+   worker whose first process lies about its MSM partials, caught by
+   duplicate execution,
    quarantined, LEAVEd and replaced by a clean process that passes the
    known-answer challenge, while a standing liar fails it; then a
    ProofService proving through a fresh one-worker fleet with the
@@ -167,9 +171,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    their direct proves; then the service attaches the fleet
    (attach_fleet), serves /fleet over HTTP, and the autoscaler's mfu_pct
    sensor reads the workers' mean kernel share, in (0, 100]; idle, it
-   retires back to one worker. Every proof equals the fixture; every
-   worker of a step launches every kernel of the path (HEALTH
-   `launches`).
+   retires back to one worker. Every fleet prove equals the fixture and
+   every job its direct prove; every worker of a step launches every
+   kernel of the path (HEALTH `launches`).
 13. Service: the port's ProofService on this card over TCP (a
    ServiceClient), with two pool workers, a store, a journal, chaos on
    and four slots of cuda:0 (so the mesh class leases a 2-slot submesh):
@@ -1906,6 +1910,11 @@ SERVICE_SPECS = {
                 None),
 }
 LOADGEN_LIMIT_S = 300
+# the seed of phase 12's v1 jobs whose proofs are held to a direct prove
+# (the kill job of step 3, step 5's first job): a job proves its circuit
+# with Random(seed), so the fixture (circuit seed 11, prove seed 1) is no
+# job's
+V1_JOB_SEED = 11
 
 
 def loadgen_checks(say, port, device, loadgen):
@@ -2431,6 +2440,55 @@ def elastic_delta(before, after, label, must=ELASTIC_KERNELS, exempt=()):
     return total
 
 
+def incident_checks(svc, obs, job, say):
+    """The incident of phase 12's step 3 read off one artifact: the job's
+    timeline merged with the fleet's (ProofService.merge_fleet_trace)
+    carries the job's trace id on every log event; dispatcher, supervisor
+    and worker events; the dispatcher's recovery event and the
+    supervisor's respawn; spans of a worker/ process; and lost_workers
+    naming worker 1 or nothing (its replacement answered). /trace/<job_id>
+    serves it raw and as Chrome trace events with the respawn as an
+    instant. Prints the spans by process and the log events by subsystem
+    and event, and the seconds of the merge. Returns the merged dump."""
+    t = time.perf_counter()
+    merged = svc.merge_fleet_trace(job.id)
+    merge_s = time.perf_counter() - t
+    logs = merged["logs"]
+    assert merged["trace_id"] == job.trace_id, merged["trace_id"]
+    assert all(e.get("trace_id") == job.trace_id for e in logs)
+    subsystems = {e["subsystem"] for e in logs}
+    assert {"dispatcher", "supervisor", "worker"} <= subsystems, subsystems
+    assert any(e["subsystem"] == "dispatcher" and e["event"] in (
+        "fft_replan", "fft_degraded", "range_adopted") for e in logs)
+    assert any(e["subsystem"] == "supervisor" and e["event"] == "respawn"
+               for e in logs)
+    spans = collections.Counter(str(e.get("proc")) for e in merged["events"])
+    assert any(p.startswith("worker/") for p in spans), spans
+    assert merged["lost_workers"] in ([], [1]), merged["lost_workers"]
+    base = "http://%s:%d/trace/%s" % (obs.host, obs.port, job.id)
+    t = time.perf_counter()
+    with urllib.request.urlopen(base + "?raw=1", timeout=60) as r:
+        raw = json.loads(r.read())
+    with urllib.request.urlopen(base, timeout=60) as r:
+        chrome = json.loads(r.read())
+    http_s = time.perf_counter() - t
+    assert raw["trace_id"] == job.trace_id, raw["trace_id"]
+    instants = [e for e in chrome["traceEvents"] if e.get("ph") == "i"]
+    assert any(e["name"] == "supervisor/respawn" for e in instants)
+    events = collections.Counter("%s/%s" % (e["subsystem"], e["event"])
+                                 for e in logs)
+    say("step 3 incident: merge_fleet_trace %.3f s (both /trace/%s forms "
+        "over HTTP %.3f s); %d spans by process %s; %d log events by "
+        "subsystem %s, by event %s; lost_workers %s" % (
+            merge_s, job.id, http_s, len(merged["events"]),
+            json.dumps(dict(sorted(spans.items()))), len(logs),
+            json.dumps(dict(sorted(collections.Counter(
+                e["subsystem"] for e in logs).items()))),
+            json.dumps(dict(sorted(events.items()))),
+            merged["lost_workers"]))
+    return merged
+
+
 def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                    v1_spec=SERVICE_SPECS["v1"]):
     """The elastic fleet on this card: port workers spawned by the port's
@@ -2442,9 +2500,16 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
     1. two supervised workers: the proof equals the fixture;
     2. add_slot twice: both JOIN, the epoch rises, the next prove's
        sharded FFT plans over 4 (each worker serves FFT2); the fixture;
-    3. kill:at=proc:tag=FFT1:worker=1:nth=1 through sup.proc_killer(d):
-       the prove replans and equals the fixture; the victim is respawned
-       and re-joins at its index with warm stats; heal seconds;
+    3. kill:at=proc:tag=FFT1:worker=1:nth=1 through sup.proc_killer(d),
+       under a v1 job (seed V1_JOB_SEED) of a ProofService proving
+       through RemoteBackend over this fleet, whose dispatcher carries a
+       Tracer from step 1: the prove replans and equals the direct
+       TorchBackend prove of the same spec; the victim is respawned and
+       re-joins at its index with warm stats; heal seconds; then
+       merge_fleet_trace(job) is the incident's one artifact (incident_
+       checks: the job's trace id on every log event, dispatcher,
+       supervisor and worker events, worker spans, lost_workers), also
+       served at /trace/<job_id>;
     4. a fifth slot whose first process lies about its MSM partials
        (--faults corrupt:at=data:tag=MSM:rate=1) under duplicate execution
        of every range: the prove catches and quarantines it (LEAVE), the
@@ -2483,6 +2548,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
     from distributed_plonk_tpu_torch.service.metrics import Metrics
     from distributed_plonk_tpu_torch.store import keycache
     from distributed_plonk_tpu_torch.store.artifacts import ArtifactStore
+    from distributed_plonk_tpu_torch.trace import Tracer
 
     def say(msg):
         print("[%s] %s" % (smi, msg), flush=True)
@@ -2512,10 +2578,11 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
     sups, dispatchers = [], []
     joins = []      # (monotonic time, membership join event)
 
-    def fleet(n, metrics, faults=None, spawn_cmd=None):
+    def fleet(n, metrics, faults=None, spawn_cmd=None, tracer=None):
         """A membership dispatcher and n supervised workers on the card,
         with each join's spawn-to-JOIN seconds printed."""
-        d = Dispatcher(NetworkConfig([]), metrics=metrics, faults=faults)
+        d = Dispatcher(NetworkConfig([]), metrics=metrics, faults=faults,
+                       tracer=tracer)
         mserver = d.enable_membership()
         sup = WorkerSupervisor("127.0.0.1", mserver.port, n=n,
                                device=worker_dev, store_dirs=[os.path.join(
@@ -2597,7 +2664,8 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
 
         # --- 1. two supervised workers --------------------------------------
         t = time.perf_counter()
-        d, sup = fleet(2, metrics, faults=faults, spawn_cmd=spawn_cmd)
+        d, sup = fleet(2, metrics, faults=faults, spawn_cmd=spawn_cmd,
+                       tracer=Tracer(proc="dispatcher"))
         wait_width(d, 2)
         say("step 1: 2 workers joined in %.3f s" % (time.perf_counter() - t))
         _be, served = fleet_prove(d, "step 1 prove (2 workers)")
@@ -2611,7 +2679,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                 workdir, "s0-%d" % len(sup.slots)))
         wait_width(d, 4)
         assert d.epoch == epoch + 2, (epoch, d.epoch)
-        be4, served = fleet_prove(d, "step 2 prove (4 workers)")
+        _be, served = fleet_prove(d, "step 2 prove (4 workers)")
         assert served == [0, 1, 2, 3], served
 
         # slot 0's store is provisioned by now
@@ -2632,7 +2700,19 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             assert kbuild["key"] in ArtifactStore(s00).keys()
         steps.done("2 (and the warmup's wait)")
 
-        # --- 3. a proc kill mid-prove heals at the same index ---------------
+        # --- 3. a proc kill mid-prove, under a service job, heals at the
+        # same index; the incident reads off one merged artifact ----------
+        be, v1_pk, _ = v1_ref
+        # the direct TorchBackend prove of the job's spec (step 5's first
+        # job has the same spec): the service proves with Random(seed),
+        # so the fixture's prove seed cannot be a job's
+        job_spec = dict(v1_spec, seed=V1_JOB_SEED)
+        t = time.perf_counter()
+        want_job = proof_io.serialize_proof(prove(
+            random.Random(V1_JOB_SEED),
+            build_circuit(JobSpec.from_wire(job_spec)), v1_pk, be))
+        say("step 3: the direct TorchBackend prove of the job's spec "
+            "(seed %d): %.3f s" % (V1_JOB_SEED, time.perf_counter() - t))
         victim_port = d.workers[1].port
         # the victim's replacement starts on an empty disk and an empty
         # build directory, so its warm rejoin must pull the kernel build
@@ -2650,29 +2730,51 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             proc_kill(i)
         faults.proc_kill_cb = stamped_kill
         faults.rules.append(Rule.parse("kill:at=proc:tag=FFT1:worker=1:nth=1"))
-        before = health_launches(d, "step 3", kind)
-        t = time.perf_counter()
-        proof = prove(random.Random(1), ckt, pk, be4)
-        secs = time.perf_counter() - t
-        assert proof_io.serialize_proof(proof) == golden, "step 3 prove"
-        assert len(kill_at) == 1 and ctr(metrics, "faults_injected_kill") == 1
-        wait_for(lambda: len(d.tracker.usable_set()) == 4
-                 and ctr(metrics, "membership_rejoins") >= 1
-                 and all(w.probe(timeout_ms=2000) is not None
-                         for w in d.workers), "heal to full width")
-        # the rejoin re-admits the victim at once: full width from then
-        heal_s = min(t for t, ev in joins if ev["rejoin"]
-                     and t > kill_at[0]) - kill_at[0]
-        assert len(d.workers) == 4 and d.workers[1].port == victim_port
-        warm = wait_for(lambda: (d.workers[1].probe() or {}).get("warm"),
-                        "warm stats")
-        say("step 3 prove with worker 1 SIGKILLed at its first FFT1: %.3f "
-            "s, equal to the fixture; replans %d, adopted ranges %d; "
-            "respawned and rejoined at index 1, healed to width 4 in %.3f s "
-            "after the kill (kill to JOIN); warm stats %s"
-            % (secs, ctr(metrics, "fleet_fft_replans"),
-               ctr(metrics, "fleet_range_adoptions"), heal_s,
-               json.dumps(warm)))
+        # the service proves on slot 0's v1 bucket, copied into its own
+        # store (no key build), through this fleet
+        s00_store = ArtifactStore(s00)
+        ArtifactStore(os.path.join(workdir, "svc3")).put(
+            bucket, s00_store.get(bucket), meta=s00_store.meta(bucket))
+        svc3 = ProofService(
+            port=0, prover_workers=1, device=torch.device(device),
+            store_dir=os.path.join(workdir, "svc3"),
+            backend_factory=lambda: RemoteBackend(d, dist_fft_min=ckt.n))
+        svc3.attach_fleet(d, interval_s=1.0)
+        obs3 = ObsServer(svc3).start()
+        try:
+            svc3.start()
+            before = health_launches(d, "step 3", kind)
+            t = time.perf_counter()
+            job = svc3.submit_local(job_spec)
+            assert job.done_event.wait(600) and job.state == "done", \
+                (job.state, job.error)
+            secs = time.perf_counter() - t
+            assert job.proof_bytes == want_job, "step 3 job"
+            assert len(kill_at) == 1 and \
+                ctr(metrics, "faults_injected_kill") == 1
+            wait_for(lambda: len(d.tracker.usable_set()) == 4
+                     and ctr(metrics, "membership_rejoins") >= 1
+                     and all(w.probe(timeout_ms=2000) is not None
+                             for w in d.workers), "heal to full width")
+            # the rejoin re-admits the victim at once: full width from then
+            heal_s = min(t for t, ev in joins if ev["rejoin"]
+                         and t > kill_at[0]) - kill_at[0]
+            assert len(d.workers) == 4 and d.workers[1].port == victim_port
+            warm = wait_for(lambda: (d.workers[1].probe() or {}).get("warm"),
+                            "warm stats")
+            say("step 3 job (seed %d) with worker 1 SIGKILLed at its first "
+                "FFT1: %.3f s from submit to done (run %.3f s), equal to "
+                "its direct prove; replans %d, adopted ranges %d; respawned "
+                "and rejoined at index 1, healed to width 4 in %.3f s after "
+                "the kill (kill to JOIN); warm stats %s"
+                % (V1_JOB_SEED, secs, job.run_s,
+                   ctr(metrics, "fleet_fft_replans"),
+                   ctr(metrics, "fleet_range_adoptions"), heal_s,
+                   json.dumps(warm)))
+            incident_checks(svc3, obs3, job, say)
+        finally:
+            obs3.close()
+            svc3.shutdown()
         assert ctr(metrics, "worker_respawns") == 1
         assert warm["artifacts"] >= 1, warm
         if kind == "cuda":
@@ -2697,9 +2799,9 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
         pulled = ArtifactStore(fresh_store).get(bucket)
         assert pulled is not None and pulled == ArtifactStore(
             os.path.join(workdir, "s0-0")).get(bucket), "warm rejoin bucket"
-        # this prove reuses step 2's base ranges, whose MSM contexts (the
-        # shifted keys proj_add builds) the workers already hold: proj_add
-        # launches only where a range is adopted. The victim's new process
+        # the job's backend pushes the base ranges anew, so each worker
+        # builds its range's MSM context (the shifted key proj_add builds)
+        # again, and an adopted range's too. The victim's new process
         # serves only what is left of the prove after its rejoin: it is
         # held to nothing
         total.update(elastic_delta(before, health_launches(d, "step 3", kind),
@@ -2776,9 +2878,10 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             backend_factory=lambda: RemoteBackend(d5, dist_fft_min=ckt.n))
         try:
             svc.attach_membership(d5.membership)
-            seeds = (11, 12, 13)
+            seeds = (V1_JOB_SEED, 12, 13)
             jobs = [svc.submit_local(dict(
-                v1_spec, seed=s, **({"slo": "flagship"} if s == 11 else {})))
+                v1_spec, seed=s,
+                **({"slo": "flagship"} if s == V1_JOB_SEED else {})))
                 for s in seeds]
             asc = svc.attach_autoscaler(
                 supervisor=sup5, mode="1", start=False, tick_s=0.2,
@@ -2836,11 +2939,11 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
             assert sc.get("autoscale_scale_downs") == 1, sc
             assert ctr(m5, "worker_respawns") == 0
             assert ctr(m5, "worker_flap_capped") == 0
-            be, v1_pk, _ = v1_ref
             for s, job in zip(seeds, jobs):
-                want = proof_io.serialize_proof(prove(
-                    random.Random(s), build_circuit(JobSpec.from_wire(
-                        dict(v1_spec, seed=s))), v1_pk, be))
+                want = want_job if s == V1_JOB_SEED else \
+                    proof_io.serialize_proof(prove(
+                        random.Random(s), build_circuit(JobSpec.from_wire(
+                            dict(v1_spec, seed=s))), v1_pk, be))
                 assert job.proof_bytes == want, "service seed %d" % s
             say("step 5: 3 v1 jobs (placements %s) served through the fleet "
                 "in %.3f s, each equal to its direct TorchBackend prove; "

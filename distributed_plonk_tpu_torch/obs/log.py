@@ -94,9 +94,15 @@ class LogBuffer:
         except OSError:
             return None
         with self._lock:
-            self._file = f
+            prev, self._file = self._file, f
             self._file_level = _LEVELS.get(level, 0)
+        _close(prev)
         return path
+
+    def close_sink(self):
+        with self._lock:
+            f, self._file = self._file, None
+        _close(f)
 
     # -- record / read --------------------------------------------------------
 
@@ -147,6 +153,20 @@ class LogBuffer:
             events = events[-int(limit):]
         return {"events": events, "seq": seq}
 
+    def reset(self):
+        """Drop everything (tests)."""
+        with self._lock:
+            self._ring.clear()
+            self.seq = 0
+
+
+def _close(f):
+    if f is not None:
+        try:
+            f.close()
+        except OSError:
+            pass
+
 
 # -- per-process default buffer ------------------------------------------------
 # One ring per process: the service and everything it embeds log into it.
@@ -185,3 +205,8 @@ def configure(log_dir=None, proc=None, metrics=None, level="debug"):
     if log_dir:
         return _BUFFER.open_sink(log_dir, proc=proc, level=level)
     return None
+
+
+def reset():
+    _BUFFER.reset()
+    _BUFFER.close_sink()

@@ -696,6 +696,8 @@ class Dispatcher:
             self._adopted[dead_i] = j
             self._unprovisioned.discard(dead_i)  # freshly pushed to j
             self.metrics.inc("fleet_range_adoptions")
+            self._log("range_adopted", level="warn", range=dead_i,
+                      worker=j)
             return protocol.decode_point(raw), j
 
         rotation = [(dead_i + off) % k for off in range(1, k + 1)]
@@ -985,6 +987,8 @@ class Dispatcher:
                         # path is healthy and must not read as continuous
                         # degradation
                         self.metrics.inc("fleet_fft_degraded")
+                        self._log("fft_degraded", level="warn", n=n,
+                                  active=len(active), width=k)
                     return self.ntt(values, inverse, coset)
                 try:
                     return self._fft_dist_attempt(values, inverse, coset,
@@ -1018,6 +1022,8 @@ class Dispatcher:
                     else:
                         same_set_retry = False
                     self.metrics.inc("fleet_fft_replans")
+                    self._log("fft_replan", level="warn", n=n,
+                              error=repr(last_err)[:200])
         raise RuntimeError(
             f"sharded FFT failed after {k + 1} replans") from last_err
 
@@ -1165,26 +1171,81 @@ class Dispatcher:
                 offsets[i] = snap["now"] - (t0 + t1) / 2.0
         return offsets
 
-    def collect_trace(self):
+    def collect_trace(self, logs=True):
         """Stitch the distributed timeline for this dispatcher's trace:
         our own spans + every worker's TRACE_DUMP for the trace id,
         timestamps corrected by the per-worker clock-offset estimate.
-        Returns the merged dump (trace.merge_traces shape); None when no
-        tracer is armed. Worker dumps are fetch-and-forget: collect once,
-        at prove end. A worker that cannot answer raises."""
+        Returns the merged dump (trace.merge_traces shape: store it as a
+        `trace:<job_id>` artifact via store.keycache.store_trace, or
+        export it with trace.to_chrome_trace); None when no tracer is
+        armed. Worker dumps are fetch-and-forget: collect once, at prove
+        end.
+
+        With logs=True the merged dump also carries a `logs` list: the
+        structured log events (obs/log.py) of THIS process's ring and of
+        every worker's LOG_FETCH, either tagged with the trace id or, for
+        subsystems that cannot know it (a supervisor respawn), untagged
+        and inside the prove's time window; those are stamped with the
+        trace id as they are attributed to it.
+
+        No fallback hides a worker: one whose connection is lost (a
+        killed worker, an open breaker) adds no spans and no logs, and
+        its index lands in `lost_workers` (counter trace_workers_lost);
+        one that answers ERR raises WorkerError."""
         if self.tracer is None:
             return None
         dumps = [self.tracer.dump()]
         offsets = [0.0]
         est = self.estimate_offsets()
         req = protocol.encode_json({"trace_id": self.tracer.trace_id})
+        log_sets = []  # (events, offset)
+        lost = []
         for i, w in enumerate(self.workers):
-            d = protocol.decode_json(
-                w.call(protocol.TRACE_DUMP, req, traced=False))
+            try:
+                d = protocol.decode_json(
+                    w.call(protocol.TRACE_DUMP, req, traced=False))
+                lf = protocol.decode_json(w.call(
+                    protocol.LOG_FETCH, protocol.encode_json({}),
+                    traced=False)) if logs else {}
+            except (ConnectionError, OSError):
+                lost.append(i)
+                self.metrics.inc("trace_workers_lost")
+                continue
             if d.get("events"):
                 dumps.append(d)
                 offsets.append(est[i])
-        return merge_traces(dumps, offsets=offsets)
+            if logs:
+                log_sets.append((lf.get("events") or [], est[i]))
+        merged = merge_traces(dumps, offsets=offsets)
+        merged["lost_workers"] = lost
+        if logs:
+            log_sets.append((olog.fetch()["events"], 0.0))
+            merged["logs"] = self._trace_logs(merged, log_sets)
+        return merged
+
+    def _trace_logs(self, merged, log_sets):
+        """Select and offset-correct the log events of one merged
+        timeline: events carrying the trace id always; untagged events
+        whose corrected timestamp lies inside the span window (padded by
+        2 s) too, stamped with the id, since merging is the attribution.
+        log_sets: [(events, offset_s)]."""
+        tid = merged.get("trace_id")
+        events = merged.get("events") or []
+        lo = min((e["ts"] for e in events), default=0.0) - 2
+        hi = max((e["ts"] + e.get("dur_s", 0.0) for e in events),
+                 default=0.0) + 2
+        out = []
+        for evs, off in log_sets:
+            for e in evs:
+                e = dict(e)
+                e["ts"] = round(float(e.get("ts", 0.0)) - off, 6)
+                if e.get("trace_id") == tid:
+                    out.append(e)
+                elif "trace_id" not in e and lo <= e["ts"] <= hi:
+                    e["trace_id"] = tid
+                    out.append(e)
+        out.sort(key=lambda e: e["ts"])
+        return out
 
     # -- fleet observability (obs/fleet.py consumes these) --------------------
 

@@ -319,6 +319,11 @@ def _sdc_due(state, tag):
     return True
 
 
+# traced kernel tags that earn a per-request structured log event (the
+# control and bulk tags, PING, FFT1 panels, exchanges, would only be noise)
+_LOGGED_TAGS = frozenset((protocol.MSM, protocol.NTT, protocol.FFT2,
+                          protocol.EVAL, protocol.FFT_INIT))
+
 # sum_j row[j] * base^j — exactly dense-poly Horner evaluation
 _horner = poly_eval
 
@@ -418,7 +423,17 @@ def handle(conn, state):
                              parent=parent), \
                     state.on_device():
                 cont = _dispatch(conn, state, tag, payload, tracer=tracer)
+            if ctx is not None and tag in _LOGGED_TAGS:
+                # one trace-correlated event per traced kernel frame
+                # (debug level; the ring cap bounds it): the worker's leg
+                # of the incident timeline
+                olog.emit("worker", "served", level="debug",
+                          worker=state.me, trace_id=tracer.trace_id,
+                          tag=protocol.tag_name(tag))
         except Exception as e:  # malformed payload / backend failure
+            # counted, so the fleet scrape's dpt_fleet_serve_errors_total
+            # reflects real error replies
+            state.metrics.inc("serve_errors")
             try:
                 conn.send(protocol.ERR, repr(e).encode())
             except ConnectionError:
@@ -847,8 +862,12 @@ def serve(index, config, device=None, ready_event=None, store_dir=None,
     state = _make_state(device, store_dir, faults, build_dir=build_dir,
                         config=config, me=index)
     listener = native.Listener(host, port)
+    olog.configure(proc=f"worker/{index}")
     _provision_kernels(state)
     _load_calibration(state, autotune)
+    olog.emit("worker", "serving", worker=index, port=port,
+              device=str(state.backend.device),
+              store=store_dir is not None)
     _run_server(listener, state, ready_event=ready_event)
 
 
@@ -886,6 +905,7 @@ def serve_joined(join_addr, listen_addr=("127.0.0.1", 0), device=None,
         state.config = NetworkConfig(reply["workers"])
         state.me = int(reply["index"])
         state.epoch = int(reply["epoch"])
+    olog.configure(proc=f"worker/{state.me}")
     olog.emit("worker", "joined", worker=state.me, port=port,
               epoch=state.epoch, device=str(state.backend.device))
     me = f"{host}:{port}"

@@ -151,6 +151,10 @@ Tracing vocabulary (trace.py, service/pool.py, ObsServer):
                                              jobs' merged timelines
     traces_stored                            trace:<job_id> artifacts
                                              written to the store
+    trace_workers_lost                       workers whose connection
+                                             was lost while a timeline
+                                             was collected (named in its
+                                             lost_workers)
     obs_http_requests                        /metrics /healthz /trace
                                              requests served
     log_events / log_dropped                 structured log events
@@ -172,6 +176,9 @@ METRICS_FETCH / LOG_FETCH / PROFILE, service/server.py):
     served_*                                 worker-side request counters
                                              per wire tag (served_msm,
                                              served_fft2, ...)
+    serve_errors                             worker-side ERR replies (a
+                                             malformed frame, a failed
+                                             handler)
     worker_*_s (histograms)                  worker-side kernel latency
                                              per stage (worker_msm_s,
                                              worker_ntt_s, worker_fft1_s,

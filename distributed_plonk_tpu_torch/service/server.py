@@ -910,6 +910,50 @@ class ProofService:
 
     # -- observability plane (--obs-port) --------------------------------------
 
+    def merge_fleet_trace(self, job_id):
+        """Splice the attached fleet's timeline into one job's trace
+        artifact: the job's merged dump (pool spans and service log
+        events) plus Dispatcher.collect_trace() (dispatcher and worker
+        spans, dispatcher/membership/supervisor/worker log events,
+        offset-corrected) become ONE trace:<job_id> artifact, the one
+        artifact of an incident; the fleet's `lost_workers` rides along.
+        Worker span buffers are fetch-and-forget and scoped to the
+        dispatcher's tracer, so call this right after the job of interest
+        finishes. Returns the merged dump (None without an attached
+        fleet)."""
+        if self.fleet_dispatcher is None:
+            return None
+        from ..trace import merge_traces
+        job = self.get_job(job_id)
+        base = job.trace_dump if job is not None else None
+        fleet = self.fleet_dispatcher.collect_trace()
+        dumps = [d for d in (base, fleet) if d]
+        if not dumps:
+            return None
+        merged = merge_traces(dumps)
+        if fleet and "lost_workers" in fleet:
+            merged["lost_workers"] = fleet["lost_workers"]
+        merged["logs"] = sorted(
+            ((base or {}).get("logs") or [])
+            + ((fleet or {}).get("logs") or []),
+            key=lambda e: e.get("ts", 0))
+        if job is not None and job.trace_id:
+            merged["trace_id"] = job.trace_id
+            # the fleet-side events were recorded under the dispatcher
+            # tracer's id (one dispatcher serves many jobs); splicing them
+            # into this job's artifact is the attribution, so they take
+            # the job's trace id: grep one id, get the incident
+            merged["logs"] = [dict(e, trace_id=job.trace_id)
+                              for e in merged["logs"]]
+            job.trace_dump = merged
+        if self.store is not None:
+            from ..store import keycache as KC
+            try:
+                KC.store_trace(self.store, job_id, merged)
+            except Exception:  # best-effort, like the pool's _store_trace
+                self.metrics.inc("store_write_errors")
+        return merged
+
     def load_trace_merged(self, job_id):
         """The merged timeline for one job: the store artifact
         (trace:<job_id>) when present, else the finished Job's in-memory

@@ -42,6 +42,7 @@ shows the prover's spans above the kernels they launched. Off by
 default.
 """
 
+import json
 import os
 import secrets
 import socket
@@ -226,9 +227,19 @@ class Tracer:
         return {"trace_id": self.trace_id, "proc": self.proc,
                 "host": self.host, "pid": self.pid, "events": events}
 
+    def to_json(self):
+        return json.dumps(self.dump(), separators=(",", ":"))
+
+    def to_chrome_trace(self):
+        """Chrome trace-event export of this process's spans alone (the
+        merged multi-process export goes through merge_traces first)."""
+        return to_chrome_trace(self.dump())
+
 
 class _NullTracer:
     """Records nothing: `span` costs one contextmanager enter/exit."""
+
+    trace_id = None
 
     @contextmanager
     def span(self, name, parent=None, **attrs):
@@ -263,17 +274,17 @@ def merge_traces(dumps, offsets=None):
             processes.extend(dict(p) for p in d.get("processes") or [])
             for ev in d["events"]:
                 ev = dict(ev)
-                ev["ts"] = float(ev.get("ts", 0.0)) - off
+                ev["ts"] = round(float(ev.get("ts", 0.0)) - off, 6)
                 events.append(ev)
             continue
         proc, host, pid = (d.get("proc") or "?", d.get("host") or "?",
                            d.get("pid") or 0)
         processes.append({"proc": proc, "host": host, "pid": pid,
-                          "offset_s": float(off),
+                          "offset_s": round(float(off), 6),
                           "spans": len(d["events"])})
         for ev in d["events"]:
             ev = dict(ev)
-            ev["ts"] = float(ev.get("ts", 0.0)) - off
+            ev["ts"] = round(float(ev.get("ts", 0.0)) - off, 6)
             ev.update(proc=proc, host=host, pid=pid)
             events.append(ev)
     events.sort(key=lambda ev: ev["ts"])
@@ -321,4 +332,4 @@ def to_chrome_trace(merged):
         })
     return {"traceEvents": out, "displayTimeUnit": "ms",
             "otherData": {"trace_id": merged.get("trace_id"),
-                          "base_ts_s": base}}
+                          "base_ts_s": round(base, 6)}}
