@@ -155,13 +155,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    workers; two more JOIN (the epoch rises, the sharded FFT plans over
    4); worker 1 SIGKILLed at its first FFT1 by the proc fault plane
    under a ProofService job proving through the fleet (the dispatcher
-   traced), respawned on an empty store and an empty build directory and
+   traced; the job submitted inside a client Tracer's span with that
+   tracer's context(), which the service adopts), respawned on an empty
+   store and an empty build directory and
    rejoined at its index (heal seconds), having pulled the kernel build
    and the bucket from slot 0's store with no nvcc run (HEALTH `build`:
    source peer, nvcc_s null; it launches K1-K4 in step 4); the incident
    read off one artifact, merge_fleet_trace (the job's spans and the
    fleet's, the dispatcher's, supervisor's and workers' log events under
-   the job's trace id), also over HTTP at /trace/<job_id>; a fifth
+   the job's trace id, which is the client's, with the pool's spans
+   parented to the client's span), also over HTTP at /trace/<job_id>; a
+   fifth
    worker whose first process lies about its MSM partials, caught by
    duplicate execution,
    quarantined, LEAVEd and replaced by a clean process that passes the
@@ -186,14 +190,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    phases' vk); AGGREGATE of the v1 jobs, fetched and verified; METRICS
    (3 key builds, the placements, no retry); a kill at round 2 that
    resumes to the uninterrupted bytes; a second service crashed at a v1
-   job's journal ROUND2 and a third one restarted on the same store and
-   journal: finished jobs served from their artifacts, the crashed one
-   resumed from its store checkpoint without round 1, its keys loaded
-   from disk. While the first service is up, scripts/torch_loadgen.py
-   --host/--port drives it from a child process (loadgen_checks): the v1
-   job and two toy jobs, and the KILL_WORKER target, every proof verified
-   on keys the child builds on the card, the kill seen as a retry, per-
-   kind p50/p95 seconds printed; the restarted services recover its
+   job's journal ROUND2 (the job submitted with a fixed trace context)
+   and a third one restarted on the same store and journal: finished
+   jobs served from their artifacts, the crashed one resumed from its
+   store checkpoint without round 1 under the context's trace id and
+   parent, its stored trace chaining up to the context's parent, its
+   keys loaded from disk. While the first service is up,
+   scripts/torch_loadgen.py --host/--port drives it from a child process
+   (loadgen_checks): the v1 job and two toy jobs, and the KILL_WORKER
+   target, every proof verified on keys the child builds on the card,
+   the kill seen as a retry, per-kind p50/p95 seconds printed; the
+   restarted services recover its
    finished jobs too. Every kernel entry must launch in the phase; per-job wait
    and run seconds, key-build seconds, each step's seconds and the phase's
    peak memory are printed beside the card's name and power limit. The
@@ -1915,6 +1922,9 @@ LOADGEN_LIMIT_S = 300
 # with Random(seed), so the fixture (circuit seed 11, prove seed 1) is no
 # job's
 V1_JOB_SEED = 11
+# phase 13's crashed job carries this trace context (a client's, fixed so
+# the journal's copy can be read back by value)
+CRASH_CTX = {"trace_id": "5a" * 16, "parent_id": "6b" * 8}
 
 
 def loadgen_checks(say, port, device, loadgen):
@@ -2002,6 +2012,7 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
         ServiceClient
     from distributed_plonk_tpu_torch.service.jobs import (
         JobSpec, build_circuit, shape_key)
+    from distributed_plonk_tpu_torch.store import keycache as KC
     from distributed_plonk_tpu_torch.verifier import verify
 
     v1, rollup, v2 = specs["v1"], specs["rollup"], specs["v2"]
@@ -2179,8 +2190,11 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
                                kill_cb=lambda _label: box["svc"].crash())
         svc = box["svc"] = ProofService(chaos=True, faults=faults, **kw)
         svc.start()
-        crash_spec = dict(v1, seed=16, job_key="crash-16")
+        crash_spec = dict(v1, seed=16, job_key="crash-16",
+                          trace_ctx=CRASH_CTX)
         job = svc.submit_local(crash_spec)
+        assert (job.trace_id, job.trace_parent) == (
+            CRASH_CTX["trace_id"], CRASH_CTX["parent_id"])
         deadline = time.monotonic() + 300
         while not svc._stopped.is_set() or svc.pool.busy():
             assert time.monotonic() < deadline, "the journal-plane crash"
@@ -2195,13 +2209,38 @@ def service_checks(smi, v1_ref, rollup_ref, v2_ref, device="cuda:0",
         # --- service 3: restart on the same store and journal ----------------
         svc = ProofService(**kw).start()
         try:
+            # the journal's trace identity, read before any resubmission
+            t = time.perf_counter()
+            rec = svc.get_job(job.id)
+            assert (rec.trace_id, rec.trace_parent) == (
+                CRASH_CTX["trace_id"], CRASH_CTX["parent_id"]), \
+                (rec.trace_id, rec.trace_parent)
+            ctx_s = time.perf_counter() - t
             for jid, blob in done_blobs.items():
                 old = svc.get_job(jid)
                 assert old.state == "done" and old.proof_bytes == blob, jid
             again, deduped = svc.submit_ex(crash_spec)
-            assert deduped and again.id == job.id
+            assert deduped and again is rec
             assert again.done_event.wait(300) and again.state == "done", \
                 again.error
+            t = time.perf_counter()
+            stored = KC.load_trace(svc.store, again.id)
+            assert stored["trace_id"] == CRASH_CTX["trace_id"], \
+                stored["trace_id"]
+            roots = [e for e in stored["events"]
+                     if e.get("parent") == CRASH_CTX["parent_id"]]
+            assert roots, stored["events"][:3]
+            chained = chained_to(stored["events"], CRASH_CTX["parent_id"])
+            assert len(chained) == len(stored["events"]), \
+                (len(chained), len(stored["events"]))
+            say("restart trace context: the recovered job %s keeps trace %s "
+                "and parent %s from the journal; its stored trace:%s has "
+                "that id, %d spans parented to the context's parent (%s), "
+                "all %d chain up to it; check %.6f s" % (
+                    again.id, again.trace_id, again.trace_parent, again.id,
+                    len(roots), ", ".join(sorted({e["span"] for e in roots})),
+                    len(stored["events"]),
+                    ctx_s + time.perf_counter() - t))
             header = {"spec": again.spec.to_wire(),
                       "public_input": [hex(x) for x in again.public_input]}
             check_proof(svc, header, again.proof_bytes,
@@ -2440,7 +2479,22 @@ def elastic_delta(before, after, label, must=ELASTIC_KERNELS, exempt=()):
     return total
 
 
-def incident_checks(svc, obs, job, say):
+def chained_to(events, root):
+    """The events of a dump whose parent links lead to span id `root`
+    (the span itself recorded elsewhere: a client's, or an adopted
+    context's parent)."""
+    parent = {e.get("sid"): e.get("parent") for e in events}
+    out = []
+    for e in events:
+        p, hops = e.get("parent"), 0
+        while p != root and p in parent and hops < len(events):
+            p, hops = parent[p], hops + 1
+        if p == root:
+            out.append(e)
+    return out
+
+
+def incident_checks(svc, obs, job, say, client_ctx=None):
     """The incident of phase 12's step 3 read off one artifact: the job's
     timeline merged with the fleet's (ProofService.merge_fleet_trace)
     carries the job's trace id on every log event; dispatcher, supervisor
@@ -2449,7 +2503,15 @@ def incident_checks(svc, obs, job, say):
     naming worker 1 or nothing (its replacement answered). /trace/<job_id>
     serves it raw and as Chrome trace events with the respawn as an
     instant. Prints the spans by process and the log events by subsystem
-    and event, and the seconds of the merge. Returns the merged dump."""
+    and event, and the seconds of the merge.
+
+    client_ctx: the Tracer.context() dict the job was submitted with.
+    Then the job, the merged dump and its raw HTTP form carry the
+    client's trace id (not the dispatcher tracer's), the job's parent is
+    the client's span, at least one pool/ span is parented to that span
+    and every pool/ span chains up to it, and worker spans are still in
+    the dump; one more line prints the ids and the check's seconds.
+    Returns the merged dump."""
     t = time.perf_counter()
     merged = svc.merge_fleet_trace(job.id)
     merge_s = time.perf_counter() - t
@@ -2475,6 +2537,31 @@ def incident_checks(svc, obs, job, say):
     assert raw["trace_id"] == job.trace_id, raw["trace_id"]
     instants = [e for e in chrome["traceEvents"] if e.get("ph") == "i"]
     assert any(e["name"] == "supervisor/respawn" for e in instants)
+    if client_ctx is not None:
+        t = time.perf_counter()
+        tid, sid = client_ctx["trace_id"], client_ctx["parent_id"]
+        assert (job.trace_id, job.trace_parent) == (tid, sid), \
+            (job.trace_id, job.trace_parent)
+        assert merged["trace_id"] == raw["trace_id"] == tid
+        assert chrome["otherData"]["trace_id"] == tid
+        fleet_tid = svc.fleet_dispatcher.tracer.trace_id
+        assert fleet_tid != tid, fleet_tid
+        pool = [e for e in merged["events"]
+                if str(e.get("proc")).startswith("pool/")]
+        direct = [e for e in pool if e.get("parent") == sid]
+        assert direct, [(e["span"], e.get("parent")) for e in pool[:5]]
+        chained = chained_to(pool, sid)
+        assert len(chained) == len(pool), (len(chained), len(pool))
+        workers = sum(n for p, n in spans.items() if p.startswith("worker/"))
+        assert workers > 0, spans
+        say("step 3 trace context: the client's trace %s (span %s) is the "
+            "job's, the merged trace:%s's and /trace/%s?raw=1's (the "
+            "dispatcher tracer's %s is not); %d of %d pool/ spans parented "
+            "to the client's span (%s), all %d chain up to it; %d worker "
+            "spans under it; check %.6f s" % (
+                tid, sid, job.id, job.id, fleet_tid, len(direct), len(pool),
+                ", ".join(sorted({e["span"] for e in direct})), len(pool),
+                workers, time.perf_counter() - t))
     events = collections.Counter("%s/%s" % (e["subsystem"], e["event"])
                                  for e in logs)
     say("step 3 incident: merge_fleet_trace %.3f s (both /trace/%s forms "
@@ -2744,11 +2831,18 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
         try:
             svc3.start()
             before = health_launches(d, "step 3", kind)
+            # a client's span: the job carries its context, which the
+            # service adopts (the job's trace id and parent)
+            client = Tracer(proc="client")
             t = time.perf_counter()
-            job = svc3.submit_local(job_spec)
-            assert job.done_event.wait(600) and job.state == "done", \
-                (job.state, job.error)
+            with client.span("client/submit_wait") as client_sid:
+                client_ctx = client.context()
+                job = svc3.submit_local(dict(job_spec, trace_ctx=client_ctx))
+                assert job.done_event.wait(600) and job.state == "done", \
+                    (job.state, job.error)
             secs = time.perf_counter() - t
+            assert client_ctx == {"trace_id": client.trace_id,
+                                  "parent_id": client_sid}, client_ctx
             assert job.proof_bytes == want_job, "step 3 job"
             assert len(kill_at) == 1 and \
                 ctr(metrics, "faults_injected_kill") == 1
@@ -2771,7 +2865,7 @@ def elastic_checks(smi, ckt, pk, vk, golden, v1_ref, device="cuda:0",
                    ctr(metrics, "fleet_fft_replans"),
                    ctr(metrics, "fleet_range_adoptions"), heal_s,
                    json.dumps(warm)))
-            incident_checks(svc3, obs3, job, say)
+            incident_checks(svc3, obs3, job, say, client_ctx)
         finally:
             obs3.close()
             svc3.shutdown()

@@ -184,10 +184,10 @@ class WorkerHandle:
             with span as span_sid, self._lock:
                 if span_sid is not None:
                     # context computed once, outside the retry loop: a
-                    # reconnect resends the identical (idempotent) frame
+                    # reconnect resends the identical (idempotent) frame;
+                    # its parent is the rpc span, open on this thread
                     _, payload = protocol.wrap_traced(
-                        tag, payload, {"trace_id": self.tracer.trace_id,
-                                       "parent_id": span_sid})
+                        tag, payload, self.tracer.context())
                 rtag, rpayload = self._call_locked(
                     tag, payload, traced=span_sid is not None)
         except (ConnectionError, OSError):

@@ -607,8 +607,7 @@ def _dispatch(conn, state, tag, payload, tracer=NULL_TRACER):
                             task_id, ps, pe - ps, task.rs, panel)
                     if push_sid is not None:
                         xtag, xpayload = protocol.wrap_traced(
-                            xtag, xpayload, {"trace_id": tracer.trace_id,
-                                             "parent_id": push_sid})
+                            xtag, xpayload, tracer.context())
                     rtag, rpayload = state.peer_call(p, xtag, xpayload)
                     if rtag != protocol.OK:
                         raise RuntimeError(

@@ -23,6 +23,12 @@ is its name, depth, duration, start, id and parent link, plus whatever
 attributes its caller gave it (the service pool stamps the job id and its
 placement on the queue-wait span). A tracer made with a `parent_id` (a
 client's span, adopted by the service) links its root spans to it.
+`context()` injects the propagation dict (`{"trace_id", "parent_id"}`: the
+innermost open span on the calling thread, else the adopted parent) that
+a client hands to `ServiceClient.submit(spec, trace_ctx=...)` or a frame
+(runtime/protocol.py's wrap_traced); `Tracer.from_context(ctx)` extracts
+it on the other side, and starts a fresh root trace from anything that is
+not such a dict.
 `to_chrome_trace` renders a merged timeline for chrome://tracing or
 Perfetto (the service's /trace endpoint).
 
@@ -136,12 +142,12 @@ def new_span_id():
 
 class Tracer:
     def __init__(self, trace_id=None, parent_id=None, proc=None,
-                 annotate=False):
+                 annotate=False, host=None):
         self.trace_id = trace_id or new_trace_id()
         self.annotate = annotate  # name spans on a profiler / NVTX timeline
         self.parent_id = parent_id    # remote parent span (adopted ctx)
         self.proc = proc or "main"
-        self.host = socket.gethostname()
+        self.host = host or socket.gethostname()
         self.pid = os.getpid()
         self.events = []   # one dict per span, in closing order
         self._tls = threading.local()
@@ -151,11 +157,40 @@ class Tracer:
         self._wall0 = time.time()
         self._perf0 = time.perf_counter()
 
+    @classmethod
+    def from_context(cls, ctx, proc=None, host=None):
+        """Extract: continue a propagated trace in this process. `ctx` is
+        a `context()` dict; a trace id that is not a non-empty str, or a
+        ctx that is not a dict (None, a string, a number), starts a fresh
+        root trace instead, never an error. A parent id that is not a str
+        is dropped."""
+        if not isinstance(ctx, dict):
+            return cls(proc=proc, host=host)
+        tid = ctx.get("trace_id")
+        if not (isinstance(tid, str) and tid):
+            tid = None
+        parent = ctx.get("parent_id")
+        if not isinstance(parent, str):
+            parent = None
+        return cls(trace_id=tid, parent_id=parent, proc=proc, host=host)
+
     def _stack(self):
         st = getattr(self._tls, "stack", None)
         if st is None:
             st = self._tls.stack = []
         return st
+
+    def context(self):
+        """Inject: the propagation dict at the calling thread's current
+        point in the trace, `{"trace_id", "parent_id"}`, the parent being
+        the innermost open span on this thread, else the adopted remote
+        parent; with neither, no `parent_id` key."""
+        stack = self._stack()
+        parent = stack[-1] if stack else self.parent_id
+        ctx = {"trace_id": self.trace_id}
+        if parent is not None:
+            ctx["parent_id"] = parent
+        return ctx
 
     def _record(self, ev):
         with self._lock:
@@ -189,11 +224,16 @@ class Tracer:
                 ev.update(attrs)
             self._record(ev)
 
-    def add_event(self, name, dur_s=None, ts=None, depth=None, **attrs):
+    def add_event(self, name, dur_s=None, ts=None, depth=None, parent=None,
+                  **attrs):
         """A span of dur_s seconds at `depth` (default: the calling
         thread's current depth), starting at wall time `ts` (default:
-        ending now), with `attrs` on its event (the JAX package's
-        signature, keywords first)."""
+        ending now), with `attrs` on its event; the JAX package's keyword
+        form `add_event(name, ts=, dur_s=, parent=)` records the same
+        event. `parent` overrides the inferred parent: the innermost open
+        span on this thread, else the adopted remote parent. (The JAX
+        package's add_event skips the open span; the port's kernel events
+        are recorded inside their round's span and nest under it.)"""
         stack = self._stack()
         dur_s = 0.0 if dur_s is None else float(dur_s)
         ev = {"span": name,
@@ -201,7 +241,8 @@ class Tracer:
               "dur_s": dur_s,
               "ts": time.time() - dur_s if ts is None else float(ts),
               "sid": new_span_id()}
-        parent = stack[-1] if stack else self.parent_id
+        if parent is None:
+            parent = stack[-1] if stack else self.parent_id
         if parent is not None:
             ev["parent"] = parent
         if attrs:
@@ -239,6 +280,7 @@ class Tracer:
 class _NullTracer:
     """Records nothing: `span` costs one contextmanager enter/exit."""
 
+    events = ()
     trace_id = None
 
     @contextmanager
@@ -247,6 +289,18 @@ class _NullTracer:
 
     def add_event(self, name, dur_s=None, ts=None, depth=None, **attrs):
         return None
+
+    def context(self):
+        return None
+
+    def totals(self, depth=0):
+        return {}
+
+    def dump(self):
+        return {}
+
+    def to_json(self):
+        return "{}"
 
 
 NULL_TRACER = _NullTracer()

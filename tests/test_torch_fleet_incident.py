@@ -11,7 +11,9 @@ dispatcher's, supervisor's and workers' log events.
 - one pane over a supervised fleet: three CPU workers, worker 1 SIGKILLed
   at its first FFT1 under a ProofService job; the proof equals the JAX
   package's, and the merged artifact passes chip_smoke.py's
-  incident_checks (the chip's own assertions), also over HTTP;
+  incident_checks (the chip's own assertions), also over HTTP, the job
+  submitted with a client tracer's context (the client's trace id wins
+  over the dispatcher tracer's; the pool's spans chain to its span);
 - `collect_trace` names a worker whose connection is lost in
   `lost_workers` (counter trace_workers_lost), and raises on an ERR reply;
 - a malformed frame raises a worker's `serve_errors` to 1 in
@@ -280,7 +282,8 @@ def test_merge_traces_rounds_as_the_jax_merge():
 def test_supervised_fleet_kill_reads_off_one_artifact(tmp_path):
     """A 3-worker supervised CPU fleet proving a ProofService job; worker
     1 is SIGKILLed at its first FFT1. The proof equals the JAX package's,
-    and merge_fleet_trace passes chip_smoke.py's incident checks."""
+    and merge_fleet_trace passes chip_smoke.py's incident checks, the
+    client's trace context among them."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
@@ -338,9 +341,14 @@ def test_supervised_fleet_kill_reads_off_one_artifact(tmp_path):
         svc.start()
         wait_for(lambda: len(d.workers) == 3
                  and len(d.tracker.usable_set()) == 3, msg="fleet up")
-        job = svc.submit_local(spec_obj)
-        assert job.done_event.wait(WAIT_S) and job.state == "done", \
-            (job.state, job.error)
+        # submitted inside a client's span with its context, as on the
+        # card: the job, its merged artifact and its pool spans carry it
+        client = Tracer(proc="client")
+        with client.span("client/submit_wait"):
+            client_ctx = client.context()
+            job = svc.submit_local(dict(spec_obj, trace_ctx=client_ctx))
+            assert job.done_event.wait(WAIT_S) and job.state == "done", \
+                (job.state, job.error)
         assert job.proof_bytes == want      # byte-identical through the kill
         assert counter(metrics, "faults_injected_kill") == 1
         # the heal (respawn and rejoin), so the supervisor's events exist
@@ -348,7 +356,7 @@ def test_supervised_fleet_kill_reads_off_one_artifact(tmp_path):
         wait_for(lambda: counter(metrics, "worker_respawns") >= 1
                  and counter(metrics, "membership_rejoins") >= 1
                  and len(d.tracker.usable_set()) == 3, msg="heal")
-        merged = chip_smoke.incident_checks(svc, obs, job, print)
+        merged = chip_smoke.incident_checks(svc, obs, job, print, client_ctx)
         # the artifact is stored as trace:<job_id>
         assert svc.load_trace_merged(job.id) == merged
         events = {(e["subsystem"], e["event"]) for e in merged["logs"]}
