@@ -34,7 +34,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    and r - 1, at v1's shapes (13 selector planes, 5 sigma planes, the
    combine, all at 2^16 lanes) and v2's (4 planes at 2^21 from selector
    4, 4 from sigma 0, the combine at 2^21), each timed beside its
-   plain version and its bound.
+   plain version and its bound. Round 4's evaluation (csrc/eval.cu,
+   kernel 8: poly_eval) against poly_eval_ref, the path round 4 took
+   before it (its products on kernel 1), on seeded words with the corners
+   and the points 0 and 1, at v1's round 4 (8, 10, 8,195: one block a
+   polynomial) and v2's (8, 10, 262,147: 32 blocks and a second launch),
+   each timed beside its plain version and its bound, with its registers
+   and spills.
 3. Full-width prove: the height-32 Rescue Merkle membership circuit
    (n = 2^13, quotient domain 2^16) preprocessed and proven on
    TorchBackend() cold, then proven again warm; both proofs must equal
@@ -44,8 +50,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    before the warm prove and read after it: every other kernel must have
    launched there, the MSM entries once per commit batch, the NTT at most
    3 launches per call, each round-3 fold once (the fused round 3: 13
-   selectors and 5 sigmas in one batch each at m = 2^16), and the
-   elementwise add not at all. Then the same keys proved on
+   selectors and 5 sigmas in one batch each at m = 2^16), poly_eval once
+   (round 4's ten evaluations; round 4's seconds and the prove's
+   mont_mul launches are printed beside it), and the elementwise add not
+   at all. Then the same keys proved on
    TorchBackend(msm_layout="base"), cold and warm: both proofs equal the
    fixture; the warm prove launches msm_finish once per commit batch,
    msm_tail never, and every other kernel as often as above.
@@ -75,9 +83,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 8. v2, the reference's 2^18 workload at full size (50 Merkle proofs,
    n = 2^18, quotient domain 2^21): the device SRS of 2^18 + 3 powers,
    preprocess, a cold and a warm prove (the fused round 3: 4 gate-fold,
-   2 sigma-fold and 1 combine launches) and one each with the streamed
-   and the one-shot round 3 (all four identical, round 3's peak memory
-   fused no higher than streamed), verify, per-round spans and peak
+   2 sigma-fold and 1 combine launches; round 4 one poly_eval launch,
+   its seconds and the prove's mont_mul launches printed) and one each
+   with the streamed and the one-shot round 3 (all four identical, round
+   3's peak memory fused no higher than streamed), verify, per-round
+   spans and peak
    device memory; five pairs of warm proves, fused and streamed in ABBA
    order (r3_ab); a round-1 batch of 5 handles over the base layout of
    v2's device key, equal to the shifted key's commitments.
@@ -133,7 +143,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    seconds, the workers' span seconds, the requests each worker served
    (every worker must serve MSM and EVAL in both proves, FFT1 and FFT2
    in the sharded one, NTT in the other) and the kernel launches per
-   fleet prove. Then the observability plane over the same workers: a
+   fleet prove (every worker launches poly_eval: one a round-4 EVAL).
+   Then the observability plane over the same workers: a
    third, sharded v1 fleet prove (equal to the fixture) with a PROFILE
    capture of worker 0 armed over it (torch.profiler on the card, after
    a 50 ms capture that pays the profiler's start-up), whose gzipped
@@ -270,13 +281,15 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    and must be clean, every mutant rejected. Here
    `registry.run_values(device="cuda")` holds every entry that has a
    kernel to its value contract on the card: kernel 1 (Fr and Fq, plain,
-   broadcast and strided, to_mont, from_mont, poly_eval), kernel 2 (all
-   four modes in 1-3 passes), kernel 3's msm_digits, and one main-path
-   shape each (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
+   broadcast and strided, to_mont, from_mont), kernel 2 (all four modes
+   in 1-3 passes), kernel 3's msm_digits, and one main-path shape each
+   (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
    msm_digits over a round-1 batch of 5 handles of width n + 2), round
-   3's three folds at 8 and at 2^12 lanes, and kernel 4's msm_finish at 2
-   windows of c = 1 and over a round-1 batch on the base layout; the
-   seven must launch. Each kernel record gains `analysis_entries`.
+   3's three folds at 8 and at 2^12 lanes, kernel 4's msm_finish at 2
+   windows of c = 1 and over a round-1 batch on the base layout, and
+   kernel 8's poly_eval at 20 and 66 coefficients, through
+   poly_eval_many, and at v1's round 4 (10 polynomials of 8,195); the
+   eight must launch. Each kernel record gains `analysis_entries`.
 
 In every phase that drives the port, the launch counters are zeroed just
 before the run and read just after it, and every kernel of that path must
@@ -827,7 +840,9 @@ def call_spread(fn, reps):
 # folds, on the path of every single-card TorchBackend prove
 BASE_KERNELS = ("mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail")
 R3_KERNELS = ("r3_gate_fold", "r3_sigma_fold", "r3_combine")
-PATH_KERNELS = BASE_KERNELS + R3_KERNELS
+# round 4's evaluation (kernel 8): on every single-card prove's path, on
+# the mesh's (its whole and sharded handles) and on a fleet worker's EVAL
+PATH_KERNELS = BASE_KERNELS + R3_KERNELS + ("poly_eval",)
 # the fused round 3's launches per warm prove: v1 (m = 2^16) folds its 13
 # selectors and 5 sigmas in one batch each; v2 (m = 2^21, 4 planes a
 # batch) in 4 and 2
@@ -1255,7 +1270,7 @@ def fleet_checks(ckt, pk, vk, golden, ck2, be2, dev, rng):
             secs = time.perf_counter() - t
             fleet_launches = launch_delta(
                 before, worker_launches(dd), "the %s fleet prove" % label,
-                BASE_KERNELS + ("proj_add",))
+                BASE_KERNELS + ("proj_add", "poly_eval"))
             blob = proof_io.serialize_proof(proof)
             assert blob == golden, "%s fleet proof bytes" % label
             assert verify(vk, ckt.public_input(), proof,
@@ -1286,6 +1301,12 @@ def fleet_checks(ckt, pk, vk, golden, ck2, be2, dev, rng):
             kernels_per = {k: v for k, v in fleet_launches.items() if v}
             print("  kernel launches per %s fleet prove: %s"
                   % (label, json.dumps(kernels_per)), flush=True)
+            print("  the workers' round-4 EVAL per %s fleet prove: "
+                  "poly_eval launches %d (one per EVAL), mont_mul %d in "
+                  "all; worker eval span %.4f s summed"
+                  % (label, fleet_launches["poly_eval"],
+                     fleet_launches["mont_mul"], spans.get("eval", 0.0)),
+                  flush=True)
             dd.pool.shutdown()
             for w in dd.workers:
                 w.close()
@@ -1369,6 +1390,70 @@ def r3_words(dev, rng, planes, m):
     return v
 
 
+def parity_row(record, kernels, runs, name, label, source, replaces, err,
+               py_ms, pms, work, shape, fn, reps):
+    """One exact phase-2 row of a kernel timed at more than one shape:
+    v1's is its `kernels` record, another shape's its record's `label`
+    entry; fn goes into `runs` for the graph time. work: (bytes,
+    IMADs) for the bound."""
+    nbytes, imads = work
+    if label == "v1":
+        record(name, source, replaces, err, py_ms, pms, nbytes, imads,
+               shape)
+        runs[name] = (fn, reps)
+        return
+    kernels[name][label] = {
+        "shape": shape, "ms": None, "launch_ms": py_ms, "plain_ms": pms,
+        "bound_ms": bound_ms(nbytes, imads),
+        "bound_by": bound_by(nbytes, imads), "library_ms": None,
+        "max_abs_err": err}
+    runs["%s %s" % (name, label)] = (fn, reps)
+    print("parity %-18s %-34s exact  launched from Python %.4f ms  "
+          "plain %.3f ms  bound %.4f ms (%s)"
+          % (name, shape, py_ms, pms, bound_ms(nbytes, imads),
+             bound_by(nbytes, imads)), flush=True)
+
+
+# kernel 8 (csrc/eval.cu): no pallas_call, the JAX function it replaces;
+# phase 2's shapes, round 4's ten polynomials of n + 3 coefficients at v1
+# (one block a polynomial) and v2 (32 blocks and a second launch)
+EVAL_SOURCE = "distributed_plonk_tpu_torch/csrc/eval.cu"
+EVAL_REPLACES = "distributed_plonk_tpu/backend/prover_jax.py:319"
+EVAL_PARITY = (("v1", 10, (1 << 13) + 3, 20), ("v2", 10, (1 << 18) + 3, 5))
+
+
+def eval_parity(dev, rng, record, plain_ms, kernels, runs,
+                shapes=EVAL_PARITY):
+    """Phase 2's poly_eval rows: kernel 8 against poly_eval_ref (the plain
+    version, its products on kernel 1: the path round 4 took before
+    kernel 8) on seeded words, the points 0 and 1 among them, at v1's
+    shape (the `kernels` record) and v2's (its "v2" entry), exact; each
+    timed from Python beside its plain version and its bound (B * L Fr
+    products; the coefficients read once), and added to `runs` for the
+    graph time."""
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    from distributed_plonk_tpu_torch.backend.limbs import lift
+    for label, B, L, reps in shapes:
+        polys = r3_words(dev, rng, B, L)
+        zs = torch.cat([lift([0, 1], dev), seeded_words(dev, rng, B - 2)],
+                       dim=1).reshape(8, B, 1)
+
+        def fn(polys=polys, zs=zs):
+            return PT.poly_eval_cuda(polys, zs)
+
+        got = fn()
+        want, pms = plain_ms(lambda: PT.poly_eval_ref(polys, zs))
+        err = max_abs_err(got, want)
+        assert err == 0 and torch.equal(got, want), ("poly_eval", label,
+                                                     err)
+        parity_row(record, kernels, runs, "poly_eval", label, EVAL_SOURCE,
+                   EVAL_REPLACES, err, launch_ms(fn, reps), pms,
+                   (32 * B * (L + 2), B * L * FR_MUL_IMADS),
+                   "(8, %d, %d), %d block(s) a poly" % (
+                       B, L, PT.eval_blocks(L)), fn, reps)
+        del got, want
+
+
 def r3_parity(dev, rng, record, plain_ms, kernels, runs, shapes=R3_PARITY):
     """Phase 2's round-3 rows: r3_gate_fold, r3_sigma_fold and r3_combine
     against their plain versions (prover_torch.*_ref: the unfused path's
@@ -1412,23 +1497,9 @@ def _r3_shape(dev, rng, record, plain_ms, kernels, runs, label, m,
         want, pms = plain_ms(ref)
         err = max_abs_err(got, want)
         assert err == 0 and torch.equal(got, want), (name, label, err)
-        py_ms = launch_ms(fn, reps)
-        nbytes, imads = r3_work(name, m, *batch)
-        if label == "v1":
-            record(name, R3_SOURCE, R3_REPLACES[name], err, py_ms, pms,
-                   nbytes, imads, shape)
-            runs[name] = (fn, reps)
-            continue
-        kernels[name][label] = {
-            "shape": shape, "ms": None, "launch_ms": py_ms,
-            "plain_ms": pms, "bound_ms": bound_ms(nbytes, imads),
-            "bound_by": bound_by(nbytes, imads), "library_ms": None,
-            "max_abs_err": err}
-        runs["%s %s" % (name, label)] = (fn, reps)
-        print("parity %-18s %-34s exact  launched from Python %.4f ms  "
-              "plain %.3f ms  bound %.4f ms (%s)"
-              % (name, shape, py_ms, pms, bound_ms(nbytes, imads),
-                 bound_by(nbytes, imads)), flush=True)
+        parity_row(record, kernels, runs, name, label, R3_SOURCE,
+                   R3_REPLACES[name], err, launch_ms(fn, reps), pms,
+                   r3_work(name, m, *batch), shape, fn, reps)
     del got, want
 
 
@@ -1531,7 +1602,7 @@ def mesh_prove_checks(mesh, ckt, pk, vk, want_blob, seed_be, label,
         secs = time.perf_counter() - t
         mib = peak_mib(mem0)
         launches = read_launches("the %s %s mesh prove" % (label, r),
-                                 BASE_KERNELS + ("proj_add",))
+                                 BASE_KERNELS + ("proj_add", "poly_eval"))
         assert proof_io.serialize_proof(proof) == want_blob, \
             "%s %s mesh proof differs from the single-card proof" % (label,
                                                                       r)
@@ -1778,7 +1849,7 @@ def analysis_cpu_child(out_path):
 
 
 ANALYSIS_KERNELS = ("mont_mul", "ntt", "msm_digits", "r3_gate_fold",
-                    "r3_sigma_fold", "r3_combine", "msm_finish")
+                    "r3_sigma_fold", "r3_combine", "msm_finish", "poly_eval")
 
 
 def analysis_checks(smi, child, out_path, log_path, kernels):
@@ -1786,13 +1857,14 @@ def analysis_checks(smi, child, out_path, log_path, kernels):
     child (analysis_cpu_child): it must be clean, with every mutant
     rejected. Here the card half: run_values(device="cuda") holds every
     registry entry that has a kernel (kernel 1 on Fr and Fq, broadcast
-    and strided, and through to_mont, from_mont and poly_eval; kernel 2
-    in all four modes in 1-3 passes; kernel 3's msm_digits; round 3's
-    three folds at 8 lanes; kernel 4's msm_finish at 2 windows) and the
-    shapes of registry.card_entries() (kernel 1 at 2^16 lanes, kernel 2
-    at n = 2^13 in each mode, msm_digits over a v1 round-1 batch, the
-    folds at 2^12 lanes, msm_finish over a round-1 batch on the base
-    layout) to their value contracts on the card, with the launch
+    and strided, and through to_mont and from_mont; kernel 2 in all four
+    modes in 1-3 passes; kernel 3's msm_digits; round 3's three folds at
+    8 lanes; kernel 4's msm_finish at 2 windows; kernel 8's poly_eval,
+    also through poly_eval_many) and the shapes of
+    registry.card_entries() (kernel 1 at 2^16 lanes, kernel 2 at n = 2^13
+    in each mode, msm_digits over a v1 round-1 batch, the folds at 2^12
+    lanes, msm_finish over a round-1 batch on the base layout, poly_eval
+    at v1's round 4) to their value contracts on the card, with the launch
     counters zeroed before and read after. Sets each kernel record's
     `analysis_entries`: the value entries held on the card."""
     from distributed_plonk_tpu_torch.analysis import registry as AR
@@ -3971,7 +4043,7 @@ def run_phases(cleanup):
               % (spec.name, json.dumps(call_spread(fn, 200))), flush=True)
 
     # K1 on the operands the prover hands it, read through their strides:
-    # a broadcast (L, 1) scalar against 330 lanes (round 4's Horner), a
+    # a broadcast (L, 1) scalar against 330 lanes (the plain Horner's), a
     # slice x[:, i] of a stacked (L, 13, 2^16) tensor (round 3's
     # selectors), two lane axes ((L, 5, 66) by (L, 5, 1)), one lane, and
     # a width that is not a multiple of the 256-thread block
@@ -4294,6 +4366,11 @@ def run_phases(cleanup):
     # round 3's folds at v1's shapes (13 selectors, 5 sigmas, the combine
     # at 2^16) and v2's (4 x 2^21, 4 x 2^21, the combine at 2^21)
     r3_parity(dev, rng, record, plain_ms, kernels, runs)
+    # round 4's evaluation (kernel 8) at v1's and v2's shapes, and its
+    # registers and spills
+    eval_parity(dev, rng, record, plain_ms, kernels, runs)
+    for fn, regs, spill in ptxas_report(_build.build_log.get("eval", "")):
+        print("poly_eval ptxas %-40s %s; %s" % (fn[:40], regs, spill))
     done("kernel parity", t0)
 
     # --- 3. full-width prove ----------------------------------------------------
@@ -4366,6 +4443,13 @@ def run_phases(cleanup):
     print("launches in preprocess: " + json.dumps(pre_launches))
     print("launches in the warm prove: " + json.dumps(launches)
           + "; ntt calls %d" % ntt_calls)
+    # round 4's ten evaluations: one poly_eval call (kernel 8), and kernel
+    # 1 only for its from_mont
+    assert launches["poly_eval"] == 1, launches
+    print("round 4 (warm v1 prove, %s): %.4f s; poly_eval launches %d, "
+          "mont_mul launches %d in the whole prove"
+          % (smi, tr_warm.totals(0)["round4"], launches["poly_eval"],
+             launches["mont_mul"]), flush=True)
     print("peak device memory %.1f MiB"
           % (torch.cuda.max_memory_allocated() / 2**20))
 
@@ -4648,6 +4732,12 @@ def run_phases(cleanup):
             assert {k: got[k] for k in R3_KERNELS} == R3_LAUNCHES["v2"], got
             for k in R3_KERNELS:
                 kernels[k]["launches_v2"] = got[k]
+            assert got["poly_eval"] == 1, got
+            kernels["poly_eval"]["launches_v2"] = got["poly_eval"]
+            print("round 4 (warm v2 prove, %s): %.4f s; poly_eval launches "
+                  "%d, mont_mul launches %d in the whole prove"
+                  % (smi, tr.totals(0)["round4"], got["poly_eval"],
+                     got["mont_mul"]), flush=True)
         v2_peaks[label] = tr.peak_mib
         print("v2 %s prove %.3f s; peak device memory above the resident "
               "%.1f MiB in the prove, %.1f MiB in round 3"
@@ -4930,10 +5020,12 @@ def run_phases(cleanup):
     done("analysis", t0)
 
     assert all(k["ms"] is not None for k in kernels.values()), kernels
-    assert all(kernels[k]["v2"]["ms"] is not None for k in R3_KERNELS)
+    assert all(kernels[k]["v2"]["ms"] is not None
+               for k in R3_KERNELS + ("poly_eval",))
     print(json.dumps({"kernels": [kernels[k] for k in (
         "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
-        "msm_finish", "proj_add", "proj_add_mixed") + R3_KERNELS]}))
+        "msm_finish", "proj_add", "proj_add_mixed") + R3_KERNELS
+        + ("poly_eval",)]}))
     # count: the cards this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ the kernel's output to the same contract on the same samples. Families:
   bucket and finish entries are), and the base layout's window finish
   `msm_finish_ref` (card: kernel 4's msm_finish);
 - curve/: `proj_add_ref`, `proj_add_mixed_ref` (bounds only);
-- eval/: `poly_eval` / `poly_eval_many` (card: kernel 1);
+- eval/: `poly_eval_ref` / `poly_eval_many` (card: kernel 8);
 - r3/: round 3's folds, `gate_fold_ref` (all 13 selectors, and a batch
   that starts and ends inside a kind), `sigma_fold_ref`,
   `quotient_combine_ref` (card: csrc/round3.cu).
@@ -25,8 +25,10 @@ the kernel's output to the same contract on the same samples. Families:
 `card_entries()` adds one main-path shape per kernel for the card half
 alone: kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode, kernel
 3's msm_digits over a round-1 batch of 5 handles of width n + 2, the
-three round-3 folds at 2^12 lanes (16 blocks), and msm_finish over a
-round-1 batch of 5 handles on the base layout (37 windows, 64 buckets).
+three round-3 folds at 2^12 lanes (16 blocks), msm_finish over a
+round-1 batch of 5 handles on the base layout (37 windows, 64 buckets),
+and kernel 8's poly_eval at round 4's v1 shape (10 polynomials of n + 3
+coefficients).
 
 Shapes are representative, not production-sized: every interval rule is
 width-generic, and the loops of the plain versions repeat one step on the
@@ -461,16 +463,16 @@ def _finish_value(B_, W, c, signed, samples=1):
     return ValueObligation(sampler, contract, samples=samples)
 
 
-def _eval_value(Lc, batch=None, fn=None):
-    """value(out) == sum_i c_i z^i in raw-value terms: coefficients and
-    point arrive in Montgomery form (c_i = v_i R^-1, z = vz R^-1);
-    poly_eval returns the Montgomery form of p(z), poly_eval_many the
-    canonical value."""
+def _eval_value(Lc, batch=1, canonical=False, fn=None):
+    """value(out) == sum_i c_i z^i in raw-value terms for `batch`
+    polynomials of Lc coefficients: coefficients and point arrive in
+    Montgomery form (c_i = v_i R^-1, z = vz R^-1); poly_eval returns the
+    Montgomery form of p(z), poly_eval_many (canonical) the value."""
     from ..constants import R_MOD
     from ..backend.field_torch import FR
     R = 1 << 256
     rinv = pow(R, -1, R_MOD)
-    B_ = batch or 1
+    B_ = batch
 
     def sampler(rng):
         ps = torch.stack([_fe_tensor(rng, FR, Lc, shuffle=False)
@@ -490,7 +492,7 @@ def _eval_value(Lc, batch=None, fn=None):
             pz = 0
             for c in reversed(cs):
                 pz = (pz * z + c) % R_MOD
-            want = pz if batch else pz * R % R_MOD
+            want = pz if canonical else pz * R % R_MOD
             if int(got[b]) != want:
                 errs.append("poly %d: p(z) value mismatch: got %d, want %d"
                             % (b, int(got[b]), want))
@@ -730,30 +732,31 @@ EVAL_BOUNDS_CHUNK = 16
 
 
 def _eval_entries():
-    """The round-4 evaluation (prover_torch.poly_eval: block Horner + the
-    power combine): at a chunk-multiple width and at the blinded n + 2
-    width (the padded tail), and poly_eval_many's batched launch. The value
-    obligation runs the same poly_eval at chunk 8 on 20 coefficients: 3
+    """The round-4 evaluation (prover_torch.poly_eval_ref: block Horner +
+    the power combine): at a chunk-multiple width and at the blinded n + 2
+    width (the padded tail), and poly_eval_many's batched call. The value
+    obligation runs the same poly_eval_ref at chunk 8 on 20 coefficients: 3
     Horner blocks, the padded tail and the combine. On the card these
-    launch kernel 1."""
+    launch kernel 8 (poly_eval_cuda; poly_eval_many also kernel 1's
+    from_mont)."""
     from ..backend import prover_torch as PT
 
     out = []
     for L in (256, 66):
         out.append(Entry(
             "eval/horner_at_r_n%d" % L,
-            lambda p, z: PT.poly_eval(p, z, EVAL_BOUNDS_CHUNK),
+            lambda p, z: PT.poly_eval_ref(p, z, EVAL_BOUNDS_CHUNK),
             (word_rows(8, 1, L), word_rows(8, 1, 1)), [I32],
             value=_eval_value(
-                20, fn=lambda p, z: PT.poly_eval(p, z, chunk=8)),
-            kernel=lambda p, z: PT.poly_eval(p, z, chunk=8),
-            launches="mont_mul"))
+                20, fn=lambda p, z: PT.poly_eval_ref(p, z, chunk=8)),
+            kernel=PT.poly_eval_cuda, launches="poly_eval"))
     out.append(Entry(
         "eval/horner_at_r_batch4_n66",
         lambda p, z: PT.poly_eval_many(p, z),
         (word_rows(8, 4, 66), word_rows(8, 4, 1)), [I32],
-        value=_eval_value(5, batch=2), kernel=PT.poly_eval_many,
-        launches="mont_mul"))
+        value=_eval_value(5, batch=2, canonical=True),
+        kernel=PT.poly_eval_many,
+        launches="poly_eval"))
     return out
 
 
@@ -960,10 +963,12 @@ def card_entries():
     """Main-path shapes held on the card only (too large for the exact
     host pass): kernel 1 at 2^16 lanes, kernel 2 at n = 2^13 in each mode,
     kernel 3's msm_digits over the v1 round-1 batch (5 handles of width
-    n + 2 on the key's n + 3 points), the round-3 folds, and kernel 4's
-    msm_finish over a round-1 batch on the base layout."""
+    n + 2 on the key's n + 3 points), the round-3 folds, kernel 4's
+    msm_finish over a round-1 batch on the base layout, and kernel 8's
+    poly_eval over round 4's ten polynomials of v1."""
     from ..backend import field_torch as F
     from ..backend import msm_torch as M
+    from ..backend import prover_torch as PT
 
     out = []
     lanes = 1 << 16
@@ -995,6 +1000,12 @@ def card_entries():
         kernel=lambda bx, by, bz, ks: M.msm_finish_cuda(bx, by, bz, M.W7,
                                                         7, True),
         launches="msm_finish", card_only=True))
+    # round 4's evaluation at v1's shape: ten polynomials of n + 3
+    # coefficients, one block each
+    out.append(Entry(
+        "eval/poly_eval_B10_L%d_main" % (n + 3), None, (),
+        value=_eval_value(n + 3, batch=10), kernel=PT.poly_eval_cuda,
+        launches="poly_eval", card_only=True))
     # round 3's folds over 16 blocks of lanes: all 13 selectors in one
     # launch (v1's batch), the 5 sigmas, the combine
     lanes = R3_CARD_LANES

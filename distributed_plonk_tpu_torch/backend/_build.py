@@ -55,6 +55,7 @@ SOURCES = {
     "curve": "curve_add.cu",
     "round3": "round3.cu",
     "finish": "msm_finish.cu",
+    "eval": "eval.cu",
 }
 HEADERS = ("field.cuh", "curve.cuh", "msm_tail.cuh", "curve_coop.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,6 +84,8 @@ SIGNATURES = {
                "dpt_r3_combine": (_V, _V, _L, _L, _V, _V, _L, _V, _V)},
     "finish": {"dpt_msm_finish": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _I,
                                    _I, _I, _I, _I, _I, _I, _V)},
+    "eval": {"dpt_poly_eval": (_V, _V, _V, _L, _L, _L, _V, _L, _L, _I, _I,
+                               _V)},
 }
 
 _lock = threading.Lock()
@@ -106,7 +109,8 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 # proj_add_mixed the mixed add of the same entry; bucket_sums counts one
 # per call, which launches its chunk and tree kernels; each round-3 fold
 # counts its one launch; msm_finish counts one per call, which launches
-# its window-sum and Horner kernels). CALLS counts the entry calls of the
+# its window-sum and Horner kernels; poly_eval counts one per call, which
+# launches one kernel or two). CALLS counts the entry calls of the
 # NTT, which launches one kernel per pass. The service's pool threads
 # launch concurrently, so every increment goes through count() under a
 # lock (a bare `+= 1` on a dict entry can lose an update when two threads
@@ -114,7 +118,7 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 LAUNCHES = {"mont_mul": 0, "ntt": 0, "msm_digits": 0, "bucket_sums": 0,
             "msm_tail": 0, "proj_add": 0, "proj_add_mixed": 0,
             "r3_gate_fold": 0, "r3_sigma_fold": 0, "r3_combine": 0,
-            "msm_finish": 0}
+            "msm_finish": 0, "poly_eval": 0}
 CALLS = {"ntt": 0}
 _count_lock = threading.Lock()
 

@@ -5,8 +5,9 @@ Plain torch on top of the field module (every product is a
 `field_torch.mont_mul`, i.e. kernel 1 on the card): the JAX package
 computes all of this in XLA, outside any Pallas kernel. Round 3's three
 folds (`gate_fold`, `sigma_fold`, `quotient_combine`) are one hand-written
-kernel each on the card (csrc/round3.cu), their plain versions beside
-them. Handles are (8, n) Montgomery words; scalars broadcast as (8, 1).
+kernel each on the card (csrc/round3.cu), and round 4's batched
+evaluation (`poly_eval`) is kernel 8 (csrc/eval.cu), their plain versions
+beside them. Handles are (8, n) Montgomery words; scalars broadcast as (8, 1).
 Sequential recurrences keep prover_jax's log-depth shapes (Hillis-Steele
 product and sum ladders), except that the one field inversion of a batch
 inverse runs on the host (a single element crosses, as in
@@ -310,9 +311,10 @@ def _r3_operand(t, what, dims, m, dev):
     return t.stride(0)
 
 
-def _r3_launch(entry, name, dev, args, stream_of):
-    """Launch round3.cu's `entry` on dev's current stream; count `name`."""
-    fn = getattr(_build.load()["round3"], entry)
+def _launch(lib, entry, name, dev, args, stream_of):
+    """Launch library `lib`'s `entry` on dev's current stream; count
+    `name`."""
+    fn = getattr(_build.load()[lib], entry)
     if dev.index == torch.cuda.current_device():
         rc = fn(*args, F._stream(stream_of))
     else:
@@ -346,7 +348,7 @@ def gate_fold_cuda(gate, planes, wires, start):
     ww = _r3_operand(wires, "gate_fold wires", 3, m, dev)
     gw = _r3_operand(gate, "gate_fold gate", 2, m, dev)
     out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
-    _r3_launch("dpt_r3_gate_fold", "r3_gate_fold", dev, (
+    _launch("round3", "dpt_r3_gate_fold", "r3_gate_fold", dev, (
         out.data_ptr(), out.stride(0), gate.data_ptr(), gw,
         planes.data_ptr(), pw, planes.stride(1), wires.data_ptr(), ww,
         wires.stride(1), start, B, m), gate)
@@ -360,7 +362,7 @@ def sigma_fold_cuda(acc2, planes, wires, start, beta, gamma):
     ww = _r3_operand(wires, "sigma_fold wires", 3, m, dev)
     aw = _r3_operand(acc2, "sigma_fold acc2", 2, m, dev)
     out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
-    _r3_launch("dpt_r3_sigma_fold", "r3_sigma_fold", dev, (
+    _launch("round3", "dpt_r3_sigma_fold", "r3_sigma_fold", dev, (
         out.data_ptr(), out.stride(0), acc2.data_ptr(), aw,
         planes.data_ptr(), pw, planes.stride(1), wires.data_ptr(), ww,
         wires.stride(1), start, B, m, _mont_words((beta, gamma))), acc2)
@@ -388,7 +390,7 @@ def quotient_combine_cuda(wires, z, gate, acc2, tabs, k, beta, gamma, alpha,
     out = torch.empty((FR_WORDS, m), dtype=torch.int32, device=dev)
     scal = _mont_words([gamma, alpha, alpha_sq_div_n, 1]
                        + [kj * beta for kj in k])
-    _r3_launch("dpt_r3_combine", "r3_combine", dev, (
+    _launch("round3", "dpt_r3_combine", "r3_combine", dev, (
         out.data_ptr(), wires.data_ptr(), ww, wires.stride(1),
         (ctypes.c_void_p * 6)(*[t.data_ptr() for t in ins]),
         (ctypes.c_longlong * 6)(*words), m, scal), z)
@@ -446,8 +448,18 @@ def _sum_axis1(v):
 
 def poly_eval(polys, zs, chunk=256):
     """p_b(z_b) for (8, B, L) Montgomery coefficients at (8, B, 1) points ->
-    (8, B) Montgomery. Block Horner: `chunk` sequential multiply-adds over
-    ceil(L / chunk) lanes, then the lanes combine with powers of z^chunk."""
+    (8, B) Montgomery: JAX prover_jax.poly_eval, batched. CUDA tensors
+    launch kernel 8 (poly_eval_cuda), CPU tensors run the plain version
+    (poly_eval_ref, the only place `chunk` applies)."""
+    if _on_cpu(polys, zs):
+        return poly_eval_ref(polys, zs, chunk)
+    return poly_eval_cuda(polys, zs)
+
+
+def poly_eval_ref(polys, zs, chunk=256):
+    """The plain version. Block Horner: `chunk` sequential multiply-adds
+    over ceil(L / chunk) lanes, then the lanes combine with powers of
+    z^chunk."""
     L8, B, L = polys.shape
     chunk = max(1, min(chunk, L))
     lanes = -(-L // chunk)
@@ -463,6 +475,57 @@ def poly_eval(polys, zs, chunk=256):
             pw.append(_mm(pw[-1], zk))
         acc = _mm(acc, torch.cat(pw, dim=2))
     return _sum_axis1(acc.transpose(1, 2))
+
+
+# kernel 8's geometry (csrc/eval.cu): a block's threads, and the fewest
+# coefficients a thread takes once a polynomial spans more than one block
+EVAL_THREADS = 256
+EVAL_RUN = 32
+
+
+def eval_blocks(L):
+    """Blocks of EVAL_THREADS a polynomial of L coefficients takes in
+    kernel 8's first launch: the largest power of two b with
+    b * EVAL_THREADS * EVAL_RUN <= L, at least 1. Above 1, a second
+    launch sums the blocks' partials."""
+    blocks = 1
+    while 2 * blocks * EVAL_THREADS * EVAL_RUN <= L:
+        blocks *= 2
+    return blocks
+
+
+def poly_eval_cuda(polys, zs):
+    """Kernel 8: one call, one launch (two where a polynomial spans
+    blocks) -> a fresh (8, B) Montgomery p_b(z_b). polys (8, B, L) with
+    contiguous coefficients and zs (8, B, 1) are read through their word
+    and polynomial strides, never copied."""
+    F._check_words(FR, polys, "poly_eval polys", contiguous=False)
+    F._check_words(FR, zs, "poly_eval points", contiguous=False)
+    dev = polys.device
+    if dev.type != "cuda" or zs.device != dev:
+        raise ValueError("poly_eval: operands must lie on one CUDA device")
+    if polys.dim() != 3 or zs.dim() != 3 \
+            or tuple(zs.shape[1:]) != (polys.shape[1], 1):
+        raise ValueError("poly_eval: expected (8, B, L) coefficients and "
+                         "(8, B, 1) points, got %s and %s"
+                         % (tuple(polys.shape), tuple(zs.shape)))
+    _, B, L = polys.shape
+    if B == 0 or L == 0 or B > 65535 or L >= 1 << 31:
+        raise ValueError("poly_eval: B = %d polynomials of L = %d "
+                         "coefficients (0 < B < 65536, 0 < L < 2^31)"
+                         % (B, L))
+    if L > 1 and polys.stride(2) != 1:
+        raise ValueError("poly_eval: coefficients must be contiguous, got "
+                         "strides %s" % (polys.stride(),))
+    blocks = eval_blocks(L)
+    out = torch.empty((FR_WORDS, B), dtype=torch.int32, device=dev)
+    scratch = out if blocks == 1 else torch.empty(
+        (FR_WORDS, B, blocks), dtype=torch.int32, device=dev)
+    _launch("eval", "dpt_poly_eval", "poly_eval", dev, (
+        out.data_ptr(), scratch.data_ptr(), polys.data_ptr(),
+        polys.stride(0), polys.stride(1), L, zs.data_ptr(), zs.stride(0),
+        zs.stride(1), B, blocks.bit_length() - 1), polys)
+    return out
 
 
 def poly_eval_many(polys, zs):

@@ -13,7 +13,10 @@ TorchBackend() from the device SRS (tau 0xDEADBEEF), proves once cold, then
 torch.cuda.synchronize(); every proof must equal
 tests/fixtures/proof_merkle_h32_p1.hex. Prints the card's name and power
 limit, then one JSON line per run: {"tree", "warm_s": [...], "median_s",
-"min_s"}. Exits non-zero if a run fails.
+"min_s", "round4_s": [...], "round4_median_s", "launches"}: round4_s the
+warm proves' round-4 spans, launches the kernel launch counters of the
+last warm prove (a kernel that tree does not have is absent). Exits
+non-zero if a run fails.
 """
 
 import json
@@ -50,18 +53,23 @@ def child(proves):
     srs = kzg.universal_setup_device(ckt.n + 2, tau=0xDEADBEEF)
     be = TorchBackend()
     pk, _vk = kzg.preprocess(srs, ckt, be)
-    warm = []
+    warm, round4 = [], []
     for i in range(proves + 1):
         torch.cuda.synchronize()
+        _build.reset_launches()
+        tr = Tracer()
         t = time.perf_counter()
-        proof = prove(random.Random(1), ckt, pk, be, tracer=Tracer())
+        proof = prove(random.Random(1), ckt, pk, be, tracer=tr)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         assert proof_io.serialize_proof(proof) == golden, "proof bytes"
         if i:  # the first prove is the cold one
             warm.append(secs)
+            round4.append(tr.totals(0)["round4"])
     print(json.dumps({"warm_s": warm, "median_s": statistics.median(warm),
-                      "min_s": min(warm)}))
+                      "min_s": min(warm), "round4_s": round4,
+                      "round4_median_s": statistics.median(round4),
+                      "launches": dict(_build.LAUNCHES)}))
 
 
 def main(argv):

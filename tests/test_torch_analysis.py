@@ -220,7 +220,7 @@ def test_registry_covers_every_family_and_kernel():
         assert any(n.startswith(fam) for n in names)
     card = [e for e in R.build_registry() if e.kernel is not None]
     kernels = {"mont_mul", "ntt", "msm_digits", "r3_gate_fold",
-               "r3_sigma_fold", "r3_combine", "msm_finish"}
+               "r3_sigma_fold", "r3_combine", "msm_finish", "poly_eval"}
     assert {e.launches for e in card} == kernels
     mains = R.card_entries()
     assert {e.launches for e in mains} == kernels

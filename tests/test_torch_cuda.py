@@ -372,6 +372,40 @@ def test_r3_combine_matches_plain():
                        PT.quotient_combine_ref(*args))
 
 
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 257), (4, 66), (10, 8195),
+                                 (2, 40000)])
+def test_poly_eval_matches_plain(B, L):
+    """Kernel 8 (csrc/eval.cu) against the plain version, in one counted
+    call: one block a polynomial up to (10, 8,195), v1's round 4;
+    (2, 40,000) takes 4 blocks a polynomial and a second launch. The
+    polynomials are a slice of wider rows and the points a strided slice
+    (the mesh's tail evaluation reads its points so)."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import _build
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    polys = _fr_planes((B, L + 2), 61 + L, dev)[:, :, 2:]
+    pts = _fr_planes((B + 3,), 62 + B, dev)
+    zs = (pts[:, 3:] if B < 4 else pts[:, :B]).reshape(8, B, 1)
+    want = PT.poly_eval_ref(polys, zs)
+    _build.reset_launches()
+    got = PT.poly_eval_cuda(polys, zs)
+    assert _build.LAUNCHES["poly_eval"] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(PT.poly_eval(polys, zs), want)
+
+
+def test_poly_eval_cuda_refuses_what_it_cannot_read():
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    polys = _fr_planes((2, 9), 71, dev)
+    zs = _fr_planes((3,), 72, dev)[:, 1:].reshape(8, 2, 1)
+    for args in ((polys, zs.cpu()), (polys[:, :, :0], zs),
+                 (polys[:, :0], zs[:, :0]), (polys[:, :, ::2], zs),
+                 (polys, zs[:, :1])):
+        with pytest.raises(ValueError):
+            PT.poly_eval_cuda(*args)
+
+
 def test_fused_round3_matches_streamed_at_2p16():
     """quotient_poly_streamed (one kernel per fold) equals the streamed
     round 3 followed by the coset iNTT at m = 2^16, in batches of 3 planes
