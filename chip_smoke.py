@@ -37,10 +37,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    plain version and its bound. Round 4's evaluation (csrc/eval.cu,
    kernel 8: poly_eval) against poly_eval_ref, the path round 4 took
    before it (its products on kernel 1), on seeded words with the corners
-   and the points 0 and 1, at v1's round 4 (8, 10, 8,195: one block a
-   polynomial) and v2's (8, 10, 262,147: 32 blocks and a second launch),
-   each timed beside its plain version and its bound, with its registers
-   and spills.
+   and the points 0 and 1, at v1's round 4 (8, 10, 8,195), v2's (8, 10,
+   262,147), 2^20's (8, 10, 1,048,579) and a v1 fleet worker's EVAL (8,
+   1, 2,049), each at prover_torch.eval_geometry's split for this card
+   (CTAs a polynomial, coefficients a lane), exact, timed beside its
+   plain version and its bound, with the nodes of a CUDA graph of its
+   calls (one kernel a call: no fill, no copy), the device kernels a call
+   as torch.profiler counts them where a session recorded every call,
+   and their profiler us; then its registers and spills (none).
 3. Full-width prove: the height-32 Rescue Merkle membership circuit
    (n = 2^13, quotient domain 2^16) preprocessed and proven on
    TorchBackend() cold, then proven again warm; both proofs must equal
@@ -431,15 +435,15 @@ def _profiler(cpu=True):
 def graph_kernels(runs, kernels):
     """Each kernel's device time at its parity shape from a CUDA graph of
     its launches, into kernels[name]["ms"] where it has a record (a run
-    named "<kernel> v2": into that record's "v2" shape)."""
+    named "<kernel> <label>": into that record's `label` shape)."""
     for name, (fn, reps) in runs.items():
         ms = graph_ms(fn, reps)
         print("graph time  %-20s %.4f ms per call" % (name, ms))
         base, _, shape = name.partition(" ")
         if name in kernels:
             kernels[name]["ms"] = ms
-        elif shape == "v2" and base in kernels:
-            kernels[base]["v2"]["ms"] = ms
+        elif base in kernels and shape in kernels[base]:
+            kernels[base][shape]["ms"] = ms
 
 
 def profile_kernels(runs):
@@ -1415,28 +1419,98 @@ def parity_row(record, kernels, runs, name, label, source, replaces, err,
 
 
 # kernel 8 (csrc/eval.cu): no pallas_call, the JAX function it replaces;
-# phase 2's shapes, round 4's ten polynomials of n + 3 coefficients at v1
-# (one block a polynomial) and v2 (32 blocks and a second launch)
+# phase 2's shapes (label, B, L, calls timed): round 4's ten polynomials of
+# n + 3 coefficients at v1, v2 and 2^20, and a v1 fleet worker's EVAL (one
+# polynomial: the dispatcher splits n + 3 over 4 workers)
 EVAL_SOURCE = "distributed_plonk_tpu_torch/csrc/eval.cu"
 EVAL_REPLACES = "distributed_plonk_tpu/backend/prover_jax.py:319"
-EVAL_PARITY = (("v1", 10, (1 << 13) + 3, 20), ("v2", 10, (1 << 18) + 3, 5))
+EVAL_PARITY = (("v1", 10, (1 << 13) + 3, 20), ("v2", 10, (1 << 18) + 3, 5),
+               ("2p20", 10, (1 << 20) + 3, 3), ("fleet", 1, 2049, 50))
+
+
+def eval_operands(dev, rng, B, L):
+    """Kernel 8's seeded operands on dev: (8, B, L) coefficients with the
+    corners (r3_words) and (8, B, 1) points, the first two 0 and 1 where
+    B >= 2."""
+    from distributed_plonk_tpu_torch.backend.limbs import lift
+    polys = r3_words(dev, rng, B, L)
+    zs = seeded_words(dev, rng, B)
+    if B >= 2:
+        zs[:, :2] = lift([0, 1], dev)
+    return polys, zs.reshape(8, B, 1)
+
+
+def eval_profile(fn, calls=5, tries=3):
+    """(device kernels a call, profiler us a kernel, their names) of fn
+    under torch.profiler over `calls` calls: every kernel, fill and copy
+    the session recorded. The profiler can lose events, so only a session
+    that recorded an eval_kernel for every call counts; up to `tries`
+    sessions, (None, None, names of the last) if none did."""
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with _profiler(cpu=False) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_kernels(prof)
+        names = [k for k, _, _ in rows]
+        if sum(c for k, c, _ in rows if "eval_kernel" in k) == calls:
+            count = sum(c for _, c, _ in rows)
+            return (count / calls, sum(us for _, _, us in rows) / count,
+                    names)
+    return None, None, names
+
+
+def graph_nodes(fn, reps):
+    """(kind -> count, kernel node labels) of a CUDA graph of reps fn()
+    calls, from its debug dump (cudaGraphDebugDotPrint of the captured
+    graph, kept for it): every kernel (KERNEL), fill (MEMSET) and copy
+    (MEMCPY) the calls launch, which the capture records whatever the
+    profiler loses."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    del graph
+    kinds, kernels = collections.Counter(), []
+    for node in re.split(r'^\s*"graph_\d+_node_\d+"\s*\[', text,
+                         flags=re.M)[1:]:
+        kind = re.search(r"\b(KERNEL|MEMSET|MEMCPY|HOST|EMPTY|GRAPH|"
+                         r"WAIT_EVENT|EVENT_RECORD|MEM_ALLOC|MEM_FREE|"
+                         r"CONDITIONAL)\b", node)
+        kinds[kind.group(1) if kind else "?"] += 1
+        if kind and kind.group(1) == "KERNEL":
+            kernels.append(node)
+    return kinds, kernels
 
 
 def eval_parity(dev, rng, record, plain_ms, kernels, runs,
                 shapes=EVAL_PARITY):
     """Phase 2's poly_eval rows: kernel 8 against poly_eval_ref (the plain
     version, its products on kernel 1: the path round 4 took before
-    kernel 8) on seeded words, the points 0 and 1 among them, at v1's
-    shape (the `kernels` record) and v2's (its "v2" entry), exact; each
+    kernel 8) on seeded words, the points 0 and 1 among them where B >=
+    2, at v1's shape (the `kernels` record) and each other shape of
+    EVAL_PARITY (its record's entry by label), exact; each
     timed from Python beside its plain version and its bound (B * L Fr
     products; the coefficients read once), and added to `runs` for the
-    graph time."""
+    graph time; then each shape's nodes in a CUDA graph of its calls
+    (graph_nodes: one eval_kernel a call, no fill, no copy) and its
+    device kernels a call and their profiler us (eval_profile: one where
+    a session recorded every call)."""
     from distributed_plonk_tpu_torch.backend import prover_torch as PT
-    from distributed_plonk_tpu_torch.backend.limbs import lift
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, B, L, reps in shapes:
-        polys = r3_words(dev, rng, B, L)
-        zs = torch.cat([lift([0, 1], dev), seeded_words(dev, rng, B - 2)],
-                       dim=1).reshape(8, B, 1)
+        polys, zs = eval_operands(dev, rng, B, L)
 
         def fn(polys=polys, zs=zs):
             return PT.poly_eval_cuda(polys, zs)
@@ -1449,8 +1523,25 @@ def eval_parity(dev, rng, record, plain_ms, kernels, runs,
         parity_row(record, kernels, runs, "poly_eval", label, EVAL_SOURCE,
                    EVAL_REPLACES, err, launch_ms(fn, reps), pms,
                    (32 * B * (L + 2), B * L * FR_MUL_IMADS),
-                   "(8, %d, %d), %d block(s) a poly" % (
-                       B, L, PT.eval_blocks(L)), fn, reps)
+                   "(8, %d, %d), %d CTAs x %d coefficients a lane" % (
+                       (B, L) + PT.eval_geometry(B, L, sms)), fn, reps)
+        kinds, nodes = graph_nodes(fn, 3)
+        assert dict(kinds) == {"KERNEL": 3} and all(
+            "eval_kernel" in k for k in nodes), (label, kinds, nodes)
+        per_call, us, names = eval_profile(fn)
+        assert per_call is None or (per_call == 1 and all(
+            "eval_kernel" in k for k in names)), (label, per_call, names)
+        rec = kernels["poly_eval"] if label == "v1" \
+            else kernels["poly_eval"][label]
+        rec.update(graph_kernels_per_call=kinds["KERNEL"] / 3,
+                   device_kernels_per_call=per_call, prof_us=us)
+        print("poly_eval %-5s (8, %d, %d): %s graph nodes in 3 calls; under "
+              "the profiler %s device kernels a call (%s), %s us a kernel"
+              % (label, B, L, dict(kinds), per_call if per_call is not None
+                 else "not measured (events lost)",
+                 ", ".join(k[:30] for k in names),
+                 "%.2f" % us if us is not None else "not measured"),
+              flush=True)
         del got, want
 
 
@@ -4366,11 +4457,13 @@ def run_phases(cleanup):
     # round 3's folds at v1's shapes (13 selectors, 5 sigmas, the combine
     # at 2^16) and v2's (4 x 2^21, 4 x 2^21, the combine at 2^21)
     r3_parity(dev, rng, record, plain_ms, kernels, runs)
-    # round 4's evaluation (kernel 8) at v1's and v2's shapes, and its
-    # registers and spills
+    # round 4's evaluation (kernel 8) at v1's, v2's and 2^20's shapes and
+    # a fleet worker's EVAL, and its registers and spills (none)
     eval_parity(dev, rng, record, plain_ms, kernels, runs)
     for fn, regs, spill in ptxas_report(_build.build_log.get("eval", "")):
         print("poly_eval ptxas %-40s %s; %s" % (fn[:40], regs, spill))
+        assert "0 bytes spill stores" in spill \
+            and "0 bytes spill loads" in spill, (fn, spill)
     done("kernel parity", t0)
 
     # --- 3. full-width prove ----------------------------------------------------
@@ -5022,6 +5115,8 @@ def run_phases(cleanup):
     assert all(k["ms"] is not None for k in kernels.values()), kernels
     assert all(kernels[k]["v2"]["ms"] is not None
                for k in R3_KERNELS + ("poly_eval",))
+    assert all(kernels["poly_eval"][label]["ms"] is not None
+               for label, _, _, _ in EVAL_PARITY[1:])
     print(json.dumps({"kernels": [kernels[k] for k in (
         "mont_mul", "ntt", "msm_digits", "bucket_sums", "msm_tail",
         "msm_finish", "proj_add", "proj_add_mixed") + R3_KERNELS

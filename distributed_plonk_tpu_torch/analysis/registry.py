@@ -1001,7 +1001,8 @@ def card_entries():
                                                         7, True),
         launches="msm_finish", card_only=True))
     # round 4's evaluation at v1's shape: ten polynomials of n + 3
-    # coefficients, one block each
+    # coefficients, eval_geometry's split (on 132 SMs: 11 CTAs each, 3
+    # coefficients a lane, the ticket combine)
     out.append(Entry(
         "eval/poly_eval_B10_L%d_main" % (n + 3), None, (),
         value=_eval_value(n + 3, batch=10), kernel=PT.poly_eval_cuda,

@@ -84,8 +84,8 @@ SIGNATURES = {
                "dpt_r3_combine": (_V, _V, _L, _L, _V, _V, _L, _V, _V)},
     "finish": {"dpt_msm_finish": (_V, _V, _V, _V, _V, _V, _V, _V, _V, _I,
                                    _I, _I, _I, _I, _I, _I, _V)},
-    "eval": {"dpt_poly_eval": (_V, _V, _V, _L, _L, _L, _V, _L, _L, _I, _I,
-                               _V)},
+    "eval": {"dpt_poly_eval": (_V, _V, _L, _L, _L, _V, _L, _L, _I, _I, _I,
+                               _I, _V)},
 }
 
 _lock = threading.Lock()
@@ -110,7 +110,7 @@ build_report = {"source": None, "nvcc_s": None, "install_s": None,
 # per call, which launches its chunk and tree kernels; each round-3 fold
 # counts its one launch; msm_finish counts one per call, which launches
 # its window-sum and Horner kernels; poly_eval counts one per call, which
-# launches one kernel or two). CALLS counts the entry calls of the
+# launches one kernel). CALLS counts the entry calls of the
 # NTT, which launches one kernel per pass. The service's pool threads
 # launch concurrently, so every increment goes through count() under a
 # lock (a bare `+= 1` on a dict entry can lose an update when two threads

@@ -477,28 +477,57 @@ def poly_eval_ref(polys, zs, chunk=256):
     return _sum_axis1(acc.transpose(1, 2))
 
 
-# kernel 8's geometry (csrc/eval.cu): a block's threads, and the fewest
-# coefficients a thread takes once a polynomial spans more than one block
+# kernel 8's geometry (csrc/eval.cu): the Horner lanes of a CTA (8 warps,
+# beside its power warp), the CTAs an SM holds at once, and its ticket
+# workspace's lanes, one a stream of a device (tests/test_torch_eval.py
+# holds these to eval.cu's DPT_EVAL_* values)
 EVAL_THREADS = 256
-EVAL_RUN = 32
+EVAL_CTAS_PER_SM = 4
+EVAL_LANES = 64
+_eval_streams = {}      # device index -> its streams in the order first seen
 
 
-def eval_blocks(L):
-    """Blocks of EVAL_THREADS a polynomial of L coefficients takes in
-    kernel 8's first launch: the largest power of two b with
-    b * EVAL_THREADS * EVAL_RUN <= L, at least 1. Above 1, a second
-    launch sums the blocks' partials."""
-    blocks = 1
-    while 2 * blocks * EVAL_THREADS * EVAL_RUN <= L:
-        blocks *= 2
-    return blocks
+def eval_geometry(B, L, sms):
+    """(ctas, run) of kernel 8 for B polynomials of L coefficients on a
+    card of `sms` SMs: B * ctas CTAs, each lane of a CTA taking `run`
+    coefficients (ctas is the fewest CTAs of run * EVAL_THREADS that cover
+    L). One CTA an SM where a lane's run at that width is no longer than
+    the bitlength(L) dependent products of a CTA's weight (the launch is
+    latency-bound, and more CTAs only add tree work beside the power
+    chain), else EVAL_CTAS_PER_SM CTAs an SM (throughput-bound: every
+    resident warp hides a product). Above one CTA a polynomial, the last
+    CTA to arrive sums the partials (the ticket)."""
+    run = -(-L // (max(1, sms // B) * EVAL_THREADS))
+    if run > L.bit_length():
+        run = -(-L // (max(1, EVAL_CTAS_PER_SM * sms // B) * EVAL_THREADS))
+    return -(-L // (run * EVAL_THREADS)), run
+
+
+def _eval_lane(dev, stream):
+    """Kernel 8's workspace lane for `stream` (a raw handle) of `dev`: its
+    place among the device's streams in the order first seen, so each
+    stream keeps one lane and launches that may overlap never share a
+    ticket or a partial. No lock: list.append is atomic, and a stream that
+    two threads add at once keeps its first place. Raises past EVAL_LANES
+    streams of one device."""
+    streams = _eval_streams.setdefault(dev.index, [])
+    if stream not in streams:
+        streams.append(stream)
+    lane = streams.index(stream)
+    if lane >= EVAL_LANES:
+        raise RuntimeError("poly_eval: more than %d streams on %s, the lanes "
+                           "of kernel 8's ticket workspace"
+                           % (EVAL_LANES, dev))
+    return lane
 
 
 def poly_eval_cuda(polys, zs):
-    """Kernel 8: one call, one launch (two where a polynomial spans
-    blocks) -> a fresh (8, B) Montgomery p_b(z_b). polys (8, B, L) with
-    contiguous coefficients and zs (8, B, 1) are read through their word
-    and polynomial strides, never copied."""
+    """Kernel 8: one call, one launch -> a fresh (8, B) Montgomery
+    p_b(z_b). polys (8, B, L) with contiguous coefficients and zs
+    (8, B, 1) are read through their word and polynomial strides, never
+    copied; the geometry follows B, L and the card's SM count
+    (eval_geometry), and the CTAs of a polynomial combine in the
+    workspace lane of the current stream (_eval_lane)."""
     F._check_words(FR, polys, "poly_eval polys", contiguous=False)
     F._check_words(FR, zs, "poly_eval points", contiguous=False)
     dev = polys.device
@@ -517,14 +546,13 @@ def poly_eval_cuda(polys, zs):
     if L > 1 and polys.stride(2) != 1:
         raise ValueError("poly_eval: coefficients must be contiguous, got "
                          "strides %s" % (polys.stride(),))
-    blocks = eval_blocks(L)
+    ctas, run = eval_geometry(
+        B, L, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((FR_WORDS, B), dtype=torch.int32, device=dev)
-    scratch = out if blocks == 1 else torch.empty(
-        (FR_WORDS, B, blocks), dtype=torch.int32, device=dev)
     _launch("eval", "dpt_poly_eval", "poly_eval", dev, (
-        out.data_ptr(), scratch.data_ptr(), polys.data_ptr(),
-        polys.stride(0), polys.stride(1), L, zs.data_ptr(), zs.stride(0),
-        zs.stride(1), B, blocks.bit_length() - 1), polys)
+        out.data_ptr(), polys.data_ptr(), polys.stride(0), polys.stride(1),
+        L, zs.data_ptr(), zs.stride(0), zs.stride(1), B, ctas, run,
+        _eval_lane(dev, F._stream(polys))), polys)
     return out
 
 

@@ -373,11 +373,15 @@ def test_r3_combine_matches_plain():
 
 
 @pytest.mark.parametrize("B,L", [(1, 1), (1, 257), (4, 66), (10, 8195),
-                                 (2, 40000)])
+                                 (2, 40000), (1, 2049), (10, 262147),
+                                 (3, 1800), (1, 600), (2, 1500)])
 def test_poly_eval_matches_plain(B, L):
     """Kernel 8 (csrc/eval.cu) against the plain version, in one counted
-    call: one block a polynomial up to (10, 8,195), v1's round 4;
-    (2, 40,000) takes 4 blocks a polynomial and a second launch. The
+    call, at prover_torch.eval_geometry's split for this card (on 132
+    SMs): one CTA a polynomial ((1, 1), (4, 66)), the ticket over 2, 3, 6
+    and 8 CTAs ((1, 257), (1, 600), (2, 1,500), (3, 1,800)) and over more
+    than a warp's lanes of them (v1's round 4 (10, 8,195), (2, 40,000), a
+    fleet worker's EVAL (1, 2,049), v2's round 4 (10, 262,147)). The
     polynomials are a slice of wider rows and the points a strided slice
     (the mesh's tail evaluation reads its points so)."""
     dev = _card()
@@ -392,6 +396,34 @@ def test_poly_eval_matches_plain(B, L):
     assert _build.LAUNCHES["poly_eval"] == 1
     assert torch.equal(got, want)
     assert torch.equal(PT.poly_eval(polys, zs), want)
+
+
+def test_poly_eval_on_two_streams_at_once():
+    """Kernel 8 on two streams of one card at once, 30 calls each queued
+    alternately with no wait between them, at v1's round-4 shape (10,
+    8,195: the ticket over 11 CTAs a polynomial) with other words on each
+    stream: every result equals the plain version word for word, and the
+    streams combine in workspace lanes of their own."""
+    dev = _card()
+    from distributed_plonk_tpu_torch.backend import prover_torch as PT
+    B, L = 10, 8195
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    ops = []
+    for i in range(2):
+        polys = _fr_planes((B, L), 81 + i, dev)
+        zs = _fr_planes((B,), 83 + i, dev).reshape(8, B, 1)
+        ops.append((polys, zs, PT.poly_eval_ref(polys, zs)))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(30):
+        for s, (polys, zs, want) in zip(streams, ops):
+            with torch.cuda.stream(s):
+                outs.append((PT.poly_eval_cuda(polys, zs), want))
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(got, want) for got, want in outs)
+    lanes = {PT._eval_lane(dev, s.cuda_stream) for s in streams}
+    assert len(lanes) == 2
 
 
 def test_poly_eval_cuda_refuses_what_it_cannot_read():

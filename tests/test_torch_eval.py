@@ -10,15 +10,22 @@ every value is a canonical field element.
   at points that include 0 and 1.
 - poly_eval_ref equals the port's host Horner, poly.poly_eval.
 - split_eval, a Python mirror of the kernel's split (which coefficients
-  each thread takes, the power of z each Horner runs in, the block's
-  tree, the second launch over the blocks' partials), equals
-  poly_eval_ref for thread counts above L, equal to L and not dividing L,
-  and at the kernel's own geometry (eval_blocks) across two launches.
+  each lane takes, the Horner in base z^32, the power warp's powers, the
+  shuffle tree and the tree over a CTA's warps, each CTA's weight, and
+  the in-launch combine of the CTAs' partials through the ticket),
+  equals poly_eval_ref for one CTA, several, a ragged last CTA, warp and
+  lane, L below the lanes, and at the kernel's own geometry for 132 SMs
+  (eval_geometry) at B = 1 and B = 10.
+- eval_geometry's constants are eval.cu's, and each stream of a device
+  keeps one workspace lane of its own.
 - poly_eval_cuda refuses CPU tensors and words that are not int32.
 
 The kernel against the plain version on the card: tests/test_torch_cuda.py
 (test_poly_eval_matches_plain).
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -96,71 +103,164 @@ def test_plain_equals_the_host_horner(L, chunk):
     assert torch.equal(PT.poly_eval(polys, zs, chunk), got)
 
 
-def split_eval(cs, z, threads, blocks):
-    """csrc/eval.cu's arithmetic on Python ints: dpt_poly_eval with
-    `blocks` blocks of `threads` threads a polynomial (the kernel's
-    threads are PT.EVAL_THREADS)."""
-    def launch(coeffs, y, blocks):
-        # eval_kernel over `blocks` blocks: thread r = x * threads + t
-        # runs Horner over coefficients r, r + G, ... in base y^G; the
-        # block's tree adds v[t + h] * y^h into v[t] at stride h
-        G = threads * blocks
-        y_g = pow(y, G, R_MOD)
-        partials = []
-        for x in range(blocks):
-            v = []
-            for t in range(threads):
-                acc = 0
-                for i in reversed(range(x * threads + t, len(coeffs), G)):
-                    acc = (acc * y_g + coeffs[i]) % R_MOD
-                v.append(acc)
-            h = threads // 2
-            while h:
-                for t in range(h):
-                    v[t] = (v[t] + v[t + h] * pow(y, h, R_MOD)) % R_MOD
-                h //= 2
-            partials.append(v[0])
-        return partials
+def _power(z, e):
+    """A lane of eval.cu's power warp: z^e, the exponent's bits from the
+    lowest; lane 31's square z^(2^k) of step k is multiplied in at each
+    set bit k, the first one taken as it is."""
+    x, square, have = z, z, False
+    while e:
+        if e & 1:
+            x = x * square % R_MOD if have else square
+            have = True
+        e >>= 1
+        square = square * square % R_MOD
+    return x
 
-    partials = launch(cs, z, blocks)
-    if blocks == 1:
+
+def _shuffle_tree(v, powers):
+    """Shuffle levels over a warp's lanes: at stride d = 2^i, lane l adds
+    lane (l + d)'s value times powers[i] (a lane past the end reads its
+    own); lane 0's value."""
+    for i, P in enumerate(powers):
+        d = 1 << i
+        v = [(v[l] + (v[l + d] if l + d < len(v) else v[l]) * P) % R_MOD
+             for l in range(len(v))]
+    return v[0]
+
+
+def split_eval(cs, z, ctas, run, warp=32, warps=8):
+    """csrc/eval.cu's arithmetic on Python ints: `ctas` CTAs of `warps`
+    Horner warps of `warp` lanes (the kernel's are 32 and 8); warp w of
+    CTA r owns the `warp * run` coefficients from (r * warps + w) * warp *
+    run, lane l taking every warp-th of them from its own (zeros past L)
+    and evaluating them by Horner in base z^warp; the shuffle tree in a
+    warp with z^(2^i), then over the warps' sums in warp 0 with
+    z^(warp * run * 2^i), every power as the power warp builds it; each
+    CTA's partial times its weight z^(run * warp * warps * r); then, above
+    one CTA, the ticket: lane q of the last CTA's warp 0 adds slots q,
+    q + warp, ..., then shuffle adds."""
+    L = len(cs)
+    lanes = warp * warps
+    assert warps <= warp and (ctas - 1) * run * lanes < L <= ctas * run * lanes
+    base = _power(z, warp)
+    in_warp = [_power(z, 1 << i) for i in range(warp.bit_length() - 1)]
+    over_warps = [_power(z, warp * run << i)
+                  for i in range(warps.bit_length() - 1)]
+    partials = []
+    for r in range(ctas):
+        sums = []
+        for w in range(warps):
+            s_w = (r * warps + w) * warp * run
+            steps = min(run, -(-(L - s_w) // warp)) if L > s_w else 0
+            v = [0] * warp
+            for j in reversed(range(steps)):
+                c = [cs[p] if p < L else 0
+                     for p in range(s_w + warp * j, s_w + warp * (j + 1))]
+                v = [(v[l] * base + c[l]) % R_MOD if j < steps - 1 else c[l]
+                     for l in range(warp)]
+            sums.append(_shuffle_tree(v, in_warp))
+        part = _shuffle_tree(sums + [0] * (warp - warps), over_warps)
+        if r:
+            part = part * _power(z, r * run * lanes) % R_MOD
+        partials.append(part)
+    if ctas == 1:
         return partials[0]
-    # the second launch: one block over the partials, in z^threads
-    return launch(partials, pow(z, threads, R_MOD), 1)[0]
+    s = [sum(partials[q::warp]) % R_MOD for q in range(warp)]
+    d = warp // 2
+    while d:
+        s = [(s[l] + (s[l + d] if l + d < warp else s[l])) % R_MOD
+             for l in range(warp)]
+        d //= 2
+    return s[0]
 
 
-# (L, threads, blocks): G = threads * blocks above L, equal to L, not
-# dividing L; one block, and more than one (a second launch)
-SPLITS = [(5, 4, 2), (1, 4, 1), (8, 4, 2), (8, 8, 1), (13, 2, 2),
-          (13, 4, 1), (37, 4, 4), (100, 8, 4)]
+# (L, warp, warps, run): one CTA with L below the lanes, equal to them and
+# with one coefficient a lane; several CTAs with the last one ragged, a
+# last warp and lane with fewer steps than the others, 8 CTAs and 25 (more
+# CTAs than a warp's lanes: the ticket adds several slots a lane)
+SPLITS = [(5, 2, 2, 1), (1, 2, 2, 1), (8, 2, 2, 1), (8, 4, 2, 1),
+          (13, 2, 1, 1), (13, 2, 2, 2), (37, 4, 2, 3), (100, 4, 4, 5),
+          (300, 4, 2, 9), (250, 4, 2, 4), (400, 4, 2, 2), (3, 8, 4, 1),
+          (30, 4, 2, 5)]
 
 
-@pytest.mark.parametrize("L,threads,blocks", SPLITS)
-def test_the_kernels_split_equals_the_plain_version(L, threads, blocks):
-    for z in (0, 1, 0xabcdef << 180 | L):
-        (cs, _), = _pairs(L + threads, [L], [z])
-        polys, zs = _port_operands([(cs, z)])
-        want, = TL.lower(PT.poly_eval_ref(polys, zs))
-        assert split_eval(cs, z, threads, blocks) == want, z
+@pytest.mark.parametrize("L,warp,warps,run", SPLITS)
+def test_the_kernels_split_equals_the_plain_version(L, warp, warps, run):
+    ctas = -(-L // (run * warp * warps))
+    (cs, _), = _pairs(L + warp, [L], [0])
+    points = (0, 1, 0xabcdef << 180 | L)
+    polys, zs = _port_operands([(cs, z) for z in points])
+    want = TL.lower(PT.poly_eval_ref(polys, zs))
+    for z, value in zip(points, want):
+        assert split_eval(cs, z, ctas, run, warp, warps) == value, z
+
+
+@pytest.mark.parametrize("B,L", [(1, 2049), (10, 8195)],
+                         ids=["fleet_eval_B1", "v1_B10"])
+def test_the_split_at_the_geometry_for_132_sms(B, L):
+    """The kernel's own split (32 lanes, 8 warps) at eval_geometry(B, L,
+    132): a fleet worker's EVAL and v1's round 4."""
+    ctas, run = PT.eval_geometry(B, L, 132)
+    pairs = _pairs(B + L, [L] * B, [0xfeed << 150 | b for b in range(B)])
+    polys, zs = _port_operands(pairs)
+    want = TL.lower(PT.poly_eval_ref(polys, zs))
+    assert [split_eval(cs, z, ctas, run) for cs, z in pairs] == want
 
 
 def test_the_kernels_geometry():
-    """eval_blocks: one block up to 2 * 256 * 32 - 1 coefficients (v1's
-    n + 3), then a power of two so that a thread holds 32 or more; the
-    split at that geometry, two launches, equals the plain version."""
-    run = PT.EVAL_THREADS * PT.EVAL_RUN
-    assert [PT.eval_blocks(L) for L in (1, 8195, 2 * run - 1, 2 * run,
-                                        262147, 1048579)] \
-        == [1, 1, 1, 2, 32, 128]
-    for L in (1, 300, 262147, 1048579, (1 << 31) - 1):
-        blocks = PT.eval_blocks(L)
-        assert blocks * run <= L or blocks == 1
-        assert 2 * blocks * run > L
-    L = 2 * run + 3
-    (cs, z), = _pairs(99, [L], [0xfeed << 150])
-    polys, zs = _port_operands([(cs, z)])
-    want, = TL.lower(PT.poly_eval_ref(polys, zs))
-    assert split_eval(cs, z, PT.EVAL_THREADS, PT.eval_blocks(L)) == want
+    """eval_geometry on 132 SMs: one CTA an SM while a lane's run is no
+    longer than bitlength(L) (v1's ten polynomials on 11 CTAs each, 110
+    SMs; a B = 1 EVAL of 2,049 on 9), else four an SM (v2 and 2^20 on 52
+    CTAs each with long runs); ctas is the fewest that cover L, and the
+    ticket's slots, B * ctas above one CTA, stay within 4 * 132."""
+    sms, lanes = 132, PT.EVAL_THREADS
+    assert [PT.eval_geometry(B, L, sms) for B, L in (
+        (10, 8195), (10, 262147), (10, 1048579), (1, 2049), (10, 300),
+        (1, 257), (4, 66), (2, 40000), (1, 1))] == [
+        (11, 3), (52, 20), (52, 79), (9, 1), (2, 1), (2, 1), (1, 1),
+        (53, 3), (1, 1)]
+    assert 10 * 11 >= 100
+    for B in (1, 2, 3, 10, 13, 40, 131, 400, 65535):
+        for L in (1, 255, 256, 257, 2049, 8195, 40000, 262147, (1 << 31) - 1):
+            ctas, run = PT.eval_geometry(B, L, sms)
+            assert (ctas - 1) * run * lanes < L <= ctas * run * lanes
+            assert ctas == 1 or B * ctas <= PT.EVAL_CTAS_PER_SM * sms
+            width = 1 if -(-L // (max(1, sms // B) * lanes)) \
+                <= L.bit_length() else PT.EVAL_CTAS_PER_SM
+            assert run == -(-L // (max(1, width * sms // B) * lanes))
+
+
+def test_the_geometry_constants_are_the_kernels():
+    """prover_torch's EVAL_* constants equal csrc/eval.cu's: the Horner
+    lanes of a CTA, the CTAs an SM (its launch bounds) and the workspace
+    lanes; the ticket's slots a lane hold B * ctas on a card of up to 256
+    SMs."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "distributed_plonk_tpu_torch", "csrc",
+                           "eval.cu")) as f:
+        defs = dict(re.findall(r"^#define DPT_EVAL_(\w+) (\d+)", f.read(),
+                               re.M))
+    assert 32 * int(defs["WARPS"]) == PT.EVAL_THREADS
+    assert int(defs["CTAS_PER_SM"]) == PT.EVAL_CTAS_PER_SM
+    assert int(defs["LANES"]) == PT.EVAL_LANES
+    assert int(defs["SLOTS"]) >= PT.EVAL_CTAS_PER_SM * 256
+
+
+def test_each_stream_keeps_its_own_workspace_lane(monkeypatch):
+    """_eval_lane: a stream keeps the lane it was first given, another
+    stream of the device takes the next, each device counts its own, and a
+    device's stream past EVAL_LANES is refused."""
+    monkeypatch.setattr(PT, "_eval_streams", {})
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert [PT._eval_lane(d0, 100), PT._eval_lane(d0, 200),
+            PT._eval_lane(d0, 100), PT._eval_lane(d1, 100),
+            PT._eval_lane(d1, 300)] == [0, 1, 0, 0, 1]
+    for s in range(PT.EVAL_LANES - 2):
+        PT._eval_lane(d0, 1000 + s)
+    assert PT._eval_lane(d0, 1000) == 2
+    with pytest.raises(RuntimeError, match="streams"):
+        PT._eval_lane(d0, 5)
+    assert PT._eval_lane(d1, 5) == 2
 
 
 def test_poly_eval_cuda_refuses_cpu_tensors():
